@@ -1,0 +1,59 @@
+"""The torch port never imports jax: every module of zkevm_circuits_tpu_torch
+is imported in a fresh interpreter, and jax must not be in sys.modules."""
+
+import os
+import subprocess
+import sys
+
+import zkevm_circuits_tpu_torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    pkg_dir = os.path.dirname(zkevm_circuits_tpu_torch.__file__)
+    mods = []
+    for dirpath, _, files in os.walk(pkg_dir):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), _ROOT)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+def test_port_modules_import_without_jax():
+    mods = _port_modules()
+    assert "zkevm_circuits_tpu_torch.ops.poseidon2_cuda" in mods
+    assert "zkevm_circuits_tpu_torch.prover.pipeline" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "assert 'zkevm_circuits_tpu.ops.gf' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    code = "import sys; import chip_smoke; assert 'jax' not in sys.modules"
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """Without a card the smoke script fails and prints no result line."""
+    code = ("import sys, torch, runpy; torch.cuda.is_available = lambda: False; "
+            "sys.argv = ['chip_smoke.py']; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                          env=dict(os.environ, PYTHONPATH=_ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,89 @@
+"""Conversions at the port's edges: u64 numpy <-> field tensors (`from_u64`,
+`to_u64`, the field layer's own), a witness built from plain numpy fields,
+and a proof as nested python ints.
+
+`witness_from_numpy` takes the fields of a ram_permutation witness as
+numpy arrays (field elements as u64) so that a witness made elsewhere (for
+instance by the JAX package) can be fed to the port's prover;
+`proof_to_ints` turns a `StarkProof` into nested lists of ints that compare
+with `==`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..base_structures.memory_query import MemoryQueries
+from ..models.ram_permutation import RamPermutationWitness
+from ..ops import gf
+from ..ops.gf import from_u64, to_u64  # noqa: F401  u64 numpy <-> field tensors
+from ..prover.stark import StarkProof
+
+
+def witness_from_numpy(fields: dict, device=None) -> RamPermutationWitness:
+    """fields: n, snapshot_length (ints); execute (N,) bool; unsorted and
+    sorted as dicts of {timestamp, memory_page, index, rw_flag, is_ptr,
+    value}; enc_unsorted, enc_sorted, chain_unsorted, chain_sorted,
+    challenges, lhs, rhs (u64 arrays); nondet_count (N,) ints."""
+
+    def field(name):
+        return gf.from_u64(np.asarray(fields[name], np.uint64), device)
+
+    return RamPermutationWitness(
+        n=int(fields["n"]),
+        execute=torch.from_numpy(np.array(fields["execute"], bool)).to(device),
+        unsorted=MemoryQueries.from_numpy(fields["unsorted"], device),
+        sorted=MemoryQueries.from_numpy(fields["sorted"], device),
+        enc_unsorted=field("enc_unsorted"),
+        enc_sorted=field("enc_sorted"),
+        chain_unsorted=field("chain_unsorted"),
+        chain_sorted=field("chain_sorted"),
+        challenges=field("challenges"),
+        lhs=field("lhs"),
+        rhs=field("rhs"),
+        nondet_count=torch.from_numpy(np.array(fields["nondet_count"], np.int64)).to(device),
+        snapshot_length=int(fields["snapshot_length"]),
+    )
+
+
+def _ints(a) -> list:
+    if isinstance(a, torch.Tensor):
+        a = gf.to_u64(a)
+    return np.asarray(a, np.uint64).tolist()
+
+
+def proof_to_ints(proof: StarkProof) -> dict:
+    """A StarkProof as nested python ints and lists."""
+    f = proof.fri_proof
+    return dict(
+        caps=[_ints(c) for c in proof.caps],
+        q_cap=_ints(proof.q_cap),
+        ood=dict(
+            trace_z=_ints(proof.ood["trace_z"]),
+            trace_wz=_ints(proof.ood["trace_wz"]),
+            q_z=int(proof.ood["q_z"]),
+        ),
+        fri=dict(
+            caps=[_ints(c) for c in f.caps],
+            final_poly=_ints(f.final_poly),
+            query_indices=[int(i) for i in f.query_indices],
+            openings=[
+                [dict(pair=_ints(op["pair"]), path=_ints(op["path"])) for op in per_query]
+                for per_query in f.openings
+            ],
+        ),
+        trace_openings=[
+            {
+                tag: dict(
+                    rows=[_ints(r) for r in op["rows"]],
+                    paths=[_ints(p) for p in op["paths"]],
+                    q_row=_ints(op["q_row"]),
+                    q_path=_ints(op["q_path"]),
+                    index=int(op["index"]),
+                )
+                for tag, op in entry.items()
+            }
+            for entry in proof.trace_openings
+        ],
+    )
