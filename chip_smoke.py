@@ -7,20 +7,37 @@ Phases, each printed on its own line:
      the CUDA Poseidon2 kernel (csrc/poseidon2.cu) with its build time;
   2. kernel parity: the kernel against the plain torch permutation on the
      card, bit for bit, on 2^16 random canonical states plus edge states and
-     at the main path's batch sizes (2^18 leaf states, 2^17 first tree
-     level), and against the native C++ permutation on 1,024 states; the
-     kernel's and the plain version's times at those sizes (CUDA events);
+     at the paths' batch sizes (2^18 leaf states, 2^17 first tree level,
+     2^16 main_vm sponge states, 2^11 chain segments), and against the native
+     C++ permutation on 1,024 states; the kernel's and the plain version's
+     times at those sizes (CUDA events) beside the kernel's bound;
   3. small-input reference: the ram_permutation proof at 2^8 rows made on
      the card must equal, as nested ints, the one made on the CPU;
-  4. main path: the ram_permutation witness from bench.build_tapes_np(2^16)
-     and prove_sorter_argument twice, on the card; the kernel's launch
-     count over this phase must be above 0; first and steady prove+verify
-     seconds and rows/s;
-  5. negative probe: a changed public final product must fail verification.
+  4. main path: the ram_permutation witness from build_tapes_np(2^16) and
+     prove_sorter_argument twice, on the card; the kernel's launch count over
+     this phase must be above 0; first and steady prove+verify seconds and
+     rows/s;
+  5. negative probe: a changed public final product must fail verification;
+  6. ram eval, small: at 2^10 rows in two instances, the residuals and the
+     instance compact forms computed on the card equal those computed on the
+     CPU, key by key;
+  7. ram eval, full width: a 2^20-row witness and `eval_constraints` on the
+     card (first run, then the mean of 3), all-true; witness seconds, rows/s,
+     kernel launches per evaluation (above 0), peak device memory; one changed
+     limb of sorted.value must fail `encoding_sorted` at its row and nothing
+     else;
+  8. main_vm, small: a 3-instruction program at limit 8, card residuals equal
+     CPU residuals key by key;
+  9. main_vm, full width: the benchmark loop through the native EraVM for 2^16
+     cycles and `vm.eval_constraints` on the card, all-true; host sim seconds,
+     first and steady eval seconds, cycles/s, kernel launches per evaluation
+     (above 0), peak device memory; one changed register limb must fail.
 
-Then one JSON line with the kernel's record, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero; without a CUDA card the script stops before printing any result.
+Entry points are called without a device here: they must pick the card.
+Then one JSON line with the kernel's record (its time against its bound, the
+launches of each path), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero; without
+a CUDA card the script stops before printing any result.
 """
 
 import json
@@ -33,7 +50,26 @@ import torch
 
 LOG2_ROWS = 16
 LOG2_REF_ROWS = 8
+LOG2_RAM_EVAL_ROWS = 20
+LOG2_VM_CYCLES = 16
 CHAIN_STRIDE = 512
+EVAL_REPS = 3
+
+# The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
+# Goldilocks products: 8 full rounds x 12 lanes x 4 (x^7) + 22 partial rounds
+# x (4 for x^7 + 12 for M_I); additions: 9 M_E x 62 + 96 full-round constants
+# + 22 x (1 constant + 11 for the lane sum + 12 for M_I).  Least 32-bit integer
+# instructions: a product is 4 wide multiply-adds and 4 carry adds for the 128
+# bits, then 12 for the reduction (five 64-bit add/subs at 2 each, 2 to make
+# it canonical); an addition is 6 (64-bit add, add of 2^32 - 1, compare-select).
+# The card runs 132 SMs x 64 INT32 lanes each clock.  Bytes: 96 in, 96 out
+# per state, over the HBM rate.
+PRODUCTS_PER_STATE = 8 * 12 * 4 + 22 * (4 + 12)
+ADDITIONS_PER_STATE = 9 * 62 + 8 * 12 + 22 * (1 + 11 + 12)
+INT32_INSTR_PER_STATE = PRODUCTS_PER_STATE * 20 + ADDITIONS_PER_STATE * 6
+INT32_LANES = 132 * 64
+HBM_BYTES_PER_S = 3.35e12
+BYTES_PER_STATE = 2 * 12 * 8
 
 
 def _fail(msg):
@@ -46,6 +82,22 @@ def nvidia_smi_line():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else "unknown"
+
+
+def sm_clock_hz():
+    """the card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def kernel_bound_ms(n_states, clock_hz):
+    """(least ms for n_states permutations, what bounds it)."""
+    ops_ms = 1000 * n_states * INT32_INSTR_PER_STATE / (INT32_LANES * clock_hz)
+    bytes_ms = 1000 * n_states * BYTES_PER_STATE / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def time_ms(fn, arg, reps):
@@ -70,7 +122,7 @@ def max_abs_err(a, b):
     return max(abs(int(x) - int(y)) for x, y in zip(a[diff], b[diff]))
 
 
-def kernel_parity(dev, card):
+def kernel_parity(dev, card, clock_hz):
     from zkevm_circuits_tpu_torch.ops import gf, poseidon2
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import permutation_cuda
     from zkevm_circuits_tpu_torch.runtime import native
@@ -94,7 +146,10 @@ def kernel_parity(dev, card):
           f"== native C++ on 1024 states", flush=True)
 
     record = None
-    for log_b, what in ((18, "leaf hashing"), (17, "first tree level")):
+    shapes = []
+    for log_b, what in ((18, "leaf hashing"), (17, "first tree level"),
+                        (LOG2_VM_CYCLES, "main_vm sponges, one state a cycle"),
+                        (LOG2_RAM_EVAL_ROWS - 9, "one step of the segmented chain recompute")):
         st = gf.from_u64(rng.integers(0, p, size=(1 << log_b, 12), dtype=np.uint64), dev)
         got_np = gf.to_u64(permutation_cuda(st))
         plain_np = gf.to_u64(poseidon2.permutation_plain(st))
@@ -104,28 +159,36 @@ def kernel_parity(dev, card):
             _fail(f"kernel != plain torch at 2^{log_b} states (max |diff| {err})")
         ms = time_ms(permutation_cuda, st, 20)
         plain_ms = time_ms(poseidon2.permutation_plain, st, 3)
+        bound_ms, bound_by = kernel_bound_ms(1 << log_b, clock_hz)
         print(f"timing: 2^{log_b} states ({what}): kernel {ms:.4f} ms, plain torch "
-              f"{plain_ms:.4f} ms, {1000 * (1 << log_b) / ms / 1e6:.1f} M perm/s [{card}]",
-              flush=True)
+              f"{plain_ms:.4f} ms, {1000 * (1 << log_b) / ms / 1e6:.1f} M perm/s; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({INT32_INSTR_PER_STATE} int32 instructions a "
+              f"state at {clock_hz / 1e6:.0f} MHz), {100 * bound_ms / ms:.1f} % of it reached; "
+              f"library call: none [{card}]", flush=True)
+        shapes.append(dict(states=1 << log_b, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
         if record is None:
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+    record["shapes"] = shapes
     return record
 
 
 def small_reference(dev):
     """The port's proof on the card equals its proof on the CPU (the CPU path
     is held byte-identical to the JAX package by tests/test_torch_ram_prover.py)."""
-    from bench import build_tapes_np
     from zkevm_circuits_tpu_torch.models import ram_permutation as ram
     from zkevm_circuits_tpu_torch.prover import pipeline
     from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
 
     n = 1 << LOG2_REF_ROWS
     tapes = build_tapes_np(n)
     cfg = ram.RamPermutationConfig(limit=n, chain_stride=16)
     proofs = []
-    for d in (dev, torch.device("cpu")):
+    for d in (None, torch.device("cpu")):  # None: the entry point picks the card
         w = ram.generate_witness_host_tapes(*tapes, cfg, device=d)
+        if w.lhs.device.type != ("cpu" if d is not None else dev.type):
+            _fail(f"witness made with device={d} lies on {w.lhs.device}")
         ok, proof, _, _ = pipeline.prove_sorter_argument(w)
         if not ok:
             _fail(f"2^{LOG2_REF_ROWS}-row proof on {d} did not verify")
@@ -137,11 +200,11 @@ def small_reference(dev):
 
 
 def main_path(dev, card):
-    from bench import build_tapes_np
     from zkevm_circuits_tpu_torch.models import ram_permutation as ram
     from zkevm_circuits_tpu_torch.ops import gf
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
     from zkevm_circuits_tpu_torch.prover import pipeline
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
 
     n = 1 << LOG2_ROWS
     tapes = build_tapes_np(n)
@@ -149,7 +212,7 @@ def main_path(dev, card):
     torch.cuda.synchronize()
     KERNEL.launches = 0
     t0 = time.perf_counter()
-    w = ram.generate_witness_host_tapes(*tapes, cfg, device=dev)
+    w = ram.generate_witness_host_tapes(*tapes, cfg)
     torch.cuda.synchronize()
     witness_s = time.perf_counter() - t0
     for name in ("execute", "enc_unsorted", "enc_sorted", "chain_unsorted", "challenges",
@@ -189,11 +252,207 @@ def negative_probe(proof, public, params):
     print("negative probe: changed public final product rejected", flush=True)
 
 
+def _residuals_np(res):
+    from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy
+
+    return residuals_to_numpy(res)
+
+
+def _same_residuals(card_res, cpu_res, what):
+    a, b = _residuals_np(card_res), _residuals_np(cpu_res)
+    if list(a) != list(b):
+        _fail(f"{what}: residual keys differ between the card and the CPU")
+    for k in a:
+        if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+            _fail(f"{what}: residual {k} on the card differs from the CPU's")
+    return a
+
+
+def timed_evals(evaluate, kernel):
+    """first and steady (mean of EVAL_REPS) seconds of `evaluate`, each ended by
+    a synchronize; the kernel's launches over one evaluation; the residuals of
+    the last one; peak device memory in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    res = evaluate()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernel.launches
+    t0 = time.perf_counter()
+    for _ in range(EVAL_REPS):
+        res = evaluate()
+    torch.cuda.synchronize()
+    steady_s = (time.perf_counter() - t0) / EVAL_REPS
+    if kernel.launches != (1 + EVAL_REPS) * launches:
+        _fail(f"kernel launches per evaluation changed: {launches} then "
+              f"{kernel.launches - launches} over {EVAL_REPS}")
+    return first_s, steady_s, launches, res, torch.cuda.max_memory_allocated()
+
+
+def ram_eval_small(dev):
+    """Residuals and instance compact forms on the card equal the CPU's."""
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.models import ram_permutation as ram
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+
+    n = 1 << 10
+    tapes = build_tapes_np(n)
+    cfg = ram.RamPermutationConfig(limit=n // 2, chain_stride=16)
+    sides = []
+    for d in (None, torch.device("cpu")):
+        w = ram.generate_witness_host_tapes(*tapes, cfg, device=d)
+        sides.append((ram.eval_constraints(w, cfg), ram.instance_compact_forms(w, cfg)))
+    res = _same_residuals(sides[0][0], sides[1][0], "ram eval at 2^10 rows")
+    if not all(v.all() for v in res.values()):
+        _fail("ram eval at 2^10 rows: a residual is false")
+    if sides[0][1].start_flag.device.type != dev.type:
+        _fail("compact forms of a card witness are not on the card")
+    for f in dataclasses.fields(sides[0][1]):
+        a, b = (getattr(s[1], f.name).cpu() for s in sides)
+        if a.shape != b.shape or not bool((a == b).all()):
+            _fail(f"ram compact form field {f.name} on the card differs from the CPU's")
+    commitments = gf.to_u64(sides[0][1].commitment())
+    if commitments.shape != (2, 4) or not np.array_equal(
+            commitments, gf.to_u64(sides[1][1].commitment())):
+        _fail("ram instance commitments on the card differ from the CPU's")
+    print(f"ram eval small: 2^10 rows, 2 instances: {len(res)} residuals and the compact "
+          f"forms on the card == on the CPU, all true", flush=True)
+
+
+def ram_eval_full(dev, card):
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.models import ram_permutation as ram
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+
+    n = 1 << LOG2_RAM_EVAL_ROWS
+    tapes = build_tapes_np(n)
+    cfg = ram.RamPermutationConfig(limit=n, chain_stride=CHAIN_STRIDE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = ram.generate_witness_host_tapes(*tapes, cfg)
+    torch.cuda.synchronize()
+    witness_s = time.perf_counter() - t0
+    if w.enc_sorted.device.type != dev.type or w.enc_sorted.shape != (n, 8):
+        _fail(f"ram witness: enc_sorted {tuple(w.enc_sorted.shape)} on {w.enc_sorted.device}")
+    first_s, steady_s, launches, res, peak = timed_evals(
+        lambda: ram.eval_constraints(w, cfg), KERNEL)
+    if launches <= 0:
+        _fail("ram eval launched the Poseidon2 kernel no time")
+    if any(v.device.type != dev.type for v in res.values()):
+        _fail("ram eval: a residual is not on the card")
+    bad = [k for k, v in res.items() if not bool(v.all())]
+    if bad or not ram.all_ok(res):
+        _fail(f"ram eval at 2^{LOG2_RAM_EVAL_ROWS} rows: residuals {bad} are false")
+    if res["chain_sorted"].shape != (n // CHAIN_STRIDE,) or res["sort_order"].shape != (n,):
+        _fail("ram eval: residual shapes are wrong")
+    print(f"ram eval: witness 2^{LOG2_RAM_EVAL_ROWS} rows {witness_s:.3f} s "
+          f"({n / witness_s:.1f} rows/s); eval_constraints first {first_s:.4f} s, steady "
+          f"{steady_s:.4f} s ({n / steady_s:.1f} rows/s), {len(res)} residuals all true; kernel "
+          f"launches per evaluation {launches}; peak device memory {peak / 2**20:.1f} MiB "
+          f"[{card}]", flush=True)
+
+    # negative probe: the stored encoding no longer matches the changed field
+    row = n // 3
+    value = w.sorted.value.clone()
+    value[row, 4] ^= 1
+    forged = dataclasses.replace(w, sorted=dataclasses.replace(w.sorted, value=value))
+    res = _residuals_np(ram.eval_constraints(forged, cfg))
+    bad = [k for k, v in res.items() if not v.all()]
+    if bad != ["encoding_sorted"] or np.flatnonzero(~res["encoding_sorted"]).tolist() != [row]:
+        _fail(f"ram negative probe: expected encoding_sorted false at row {row} only, got {bad}")
+    print(f"ram negative probe: a changed limb of sorted.value at row {row} fails "
+          f"encoding_sorted there and nothing else", flush=True)
+    return launches
+
+
+def _vm_programs():
+    from zkevm_circuits_tpu_torch.isa import opcodes as isa
+
+    enc = isa.encode_instruction
+    small = [
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=41, src1=0, dst0=1),
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=1, src1=1, dst0=2),
+        enc(isa.RET, isa.RET_OK),
+    ]
+    set_flags = 1 << isa.SET_FLAGS_FLAG_IDX
+    swap = 1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES
+    loop = [
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xFFFF, src1=0, dst0=1),
+        enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=1, src1=1, dst0=1, flags=set_flags | swap),
+        enc(isa.MUL, src0=1, src1=1, dst0=2, dst1=3),
+        enc(isa.BINOP, isa.BINOP_XOR, src0=2, src1=1, dst0=4),
+        enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=1, condition=isa.COND_NE),
+        enc(isa.RET, isa.RET_OK),
+    ]
+    return small, loop
+
+
+def vm_eval_small(dev):
+    from zkevm_circuits_tpu_torch.models import vm
+
+    limit = 8
+    w = vm.NativeEraVM(vm.assemble_code_words(_vm_programs()[0]), limit).run()
+    dw = vm.prepare_device_witness(w)
+    if dw["regs"].device.type != dev.type:
+        _fail(f"prepare_device_witness without a device put regs on {dw['regs'].device}")
+    cpu = vm.prepare_device_witness(w, device="cpu")
+    res = _same_residuals(vm.eval_constraints(dw, limit), vm.eval_constraints(cpu, limit),
+                          "main_vm at limit 8")
+    if not all(v.all() for v in res.values()):
+        _fail("main_vm at limit 8: a residual is false")
+    print(f"main_vm small: limit {limit}: {len(res)} residuals on the card == on the CPU, "
+          f"all true", flush=True)
+
+
+def vm_eval_full(dev, card):
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+
+    n = 1 << LOG2_VM_CYCLES
+    t0 = time.perf_counter()
+    w = vm.NativeEraVM(vm.assemble_code_words(_vm_programs()[1]), n).run()
+    sim_s = time.perf_counter() - t0
+    dw = vm.prepare_device_witness(w)
+    torch.cuda.synchronize()
+    if dw["regs"].device.type != dev.type or dw["regs"].shape != (n + 1, 15, 8):
+        _fail(f"main_vm witness: regs {tuple(dw['regs'].shape)} on {dw['regs'].device}")
+    first_s, steady_s, launches, res, peak = timed_evals(
+        lambda: vm.eval_constraints(dw, n), KERNEL)
+    if launches <= 0:
+        _fail("main_vm eval launched the Poseidon2 kernel no time")
+    bad = [k for k, v in res.items() if v.shape != (n,) or not bool(v.all())]
+    if bad or not vm.all_ok(res):
+        _fail(f"main_vm eval at 2^{LOG2_VM_CYCLES} cycles: residuals {bad} are false")
+    print(f"main_vm eval: host sim 2^{LOG2_VM_CYCLES} cycles {sim_s:.3f} s; eval_constraints "
+          f"first {first_s:.4f} s, steady {steady_s:.4f} s ({n / steady_s:.1f} cycles/s), "
+          f"{len(res)} residuals all true; kernel launches per evaluation {launches}; peak "
+          f"device memory {peak / 2**20:.1f} MiB [{card}]", flush=True)
+
+    # negative probe: one limb of a register at a row after cycle 0
+    forged = dict(dw)
+    regs = dw["regs"].clone()
+    regs[n // 2, 0, 0] ^= 1
+    forged["regs"] = regs
+    res = _residuals_np(vm.eval_constraints(forged, n))
+    bad = [k for k, v in res.items() if not v.all()]
+    if not bad:
+        _fail("main_vm negative probe: a changed register limb was accepted")
+    print(f"main_vm negative probe: a changed limb of r1 at row {n // 2} fails {bad}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
+    clock_hz = sm_clock_hz()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -205,17 +464,24 @@ def main():
     print(f"build: csrc/poseidon2.cu with nvcc {' '.join(poseidon2_cuda.NVCC_FLAGS)}, "
           f"built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    record = kernel_parity(dev, card)
+    record = kernel_parity(dev, card, clock_hz)
     small_reference(dev)
-    proof, public, params, launches = main_path(dev, card)
+    proof, public, params, launches_prove = main_path(dev, card)
     negative_probe(proof, public, params)
+    ram_eval_small(dev)
+    launches_ram_eval = ram_eval_full(dev, card)
+    vm_eval_small(dev)
+    launches_vm_eval = vm_eval_full(dev, card)
 
     kernel = dict(
         name="poseidon2_permutation",
         route="cuda",
         source="zkevm_circuits_tpu_torch/csrc/poseidon2.cu",
         replaces="zkevm_circuits_tpu/ops/poseidon2_pallas.py:89",
-        launches=launches,
+        launches=launches_prove + launches_ram_eval + launches_vm_eval,
+        launches_prove=launches_prove,
+        launches_ram_eval=launches_ram_eval,
+        launches_vm_eval=launches_vm_eval,
         **record,
     )
     print(json.dumps({"kernels": [kernel]}), flush=True)

@@ -1,0 +1,127 @@
+"""Where the time goes in the torch port's two constraint evaluations, on one
+CUDA card.
+
+    python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles]
+
+For ram_permutation.eval_constraints (default 2^20 rows, chain stride 512) and
+vm.eval_constraints (default 2^16 cycles) it prints: the steady wall time of
+one evaluation without the profiler (host clock around a synchronize), then
+from a torch.profiler window over one evaluation the window's wall time, the
+number of device kernels, the device's busy time and share, the Poseidon2
+kernel's launches and device time, and the ten kernels with the most device
+time.  For the ram evaluation it also times the chain recompute alone, and
+the witness generation with the native host chains' share of it.  Every
+line carries the card's name and power limit.  Needs a CUDA card.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from zkevm_circuits_tpu_torch.base_structures.memory_query import (  # noqa: E402
+    encode_memory_queries_np,
+)
+from zkevm_circuits_tpu_torch.isa import opcodes as isa  # noqa: E402
+from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm  # noqa: E402
+from zkevm_circuits_tpu_torch.ops import queues  # noqa: E402
+from zkevm_circuits_tpu_torch.runtime import native  # noqa: E402
+from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np  # noqa: E402
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def wall(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def profile(name, fn, card):
+    steady = wall(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    rows = [(e.key, e.count, e.device_time_total / 1000.0)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    busy = sum(r[2] for r in rows)
+    kernels = sum(r[1] for r in rows)
+    pos = [r for r in rows if "poseidon2" in r[0]]
+    print(f"{name}: steady {1000 * steady:.1f} ms without the profiler; profiled window "
+          f"{1000 * window:.1f} ms, {kernels} device kernels, device busy {busy:.1f} ms "
+          f"({100 * busy / (1000 * window):.1f} % of the window, {100 * busy / (1000 * steady):.1f}"
+          f" % of the steady wall); Poseidon2 kernel {sum(r[1] for r in pos)} launches, "
+          f"{sum(r[2] for r in pos):.2f} ms [{card}]", flush=True)
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"    {ms:9.2f} ms  {count:7d} x  {key[:100]}", flush=True)
+    return steady
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this profile is taken on the card")
+    log_ram = int(sys.argv[1]) if len(sys.argv) > 1 else 20
+    log_vm = int(sys.argv[2]) if len(sys.argv) > 2 else 16
+    card = card_line()
+
+    n = 1 << log_ram
+    cfg = ram.RamPermutationConfig(limit=n, chain_stride=512)
+    tapes = build_tapes_np(n)
+    t0 = time.perf_counter()
+    w = ram.generate_witness_host_tapes(*tapes, cfg)
+    torch.cuda.synchronize()
+    witness_s = time.perf_counter() - t0
+    enc = np.stack([encode_memory_queries_np(**t) for t in tapes])
+    ex2 = np.ones((2, n), dtype=np.uint8)
+    t0 = time.perf_counter()
+    native.full_state_chains_strided(enc, ex2, np.zeros((2, 12), np.uint64), 512)
+    chains_s = time.perf_counter() - t0
+    print(f"ram witness 2^{log_ram} rows: {witness_s:.3f} s, of which the two native sponge "
+          f"chains on the host {chains_s:.3f} s [{card}]", flush=True)
+    steady = profile(f"ram eval 2^{log_ram} rows", lambda: ram.eval_constraints(w, cfg), card)
+    chains = wall(lambda: (
+        queues.check_chain_segmented(w.chain_unsorted, w.enc_unsorted, w.execute),
+        queues.check_chain_segmented(w.chain_sorted, w.enc_sorted, w.execute)))
+    print(f"ram eval 2^{log_ram} rows: the two segmented chain recomputes alone "
+          f"{1000 * chains:.1f} ms of {1000 * steady:.1f} ms [{card}]", flush=True)
+    del w
+    torch.cuda.empty_cache()
+
+    enc = isa.encode_instruction
+    loop = [
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xFFFF, src1=0, dst0=1),
+        enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=1, src1=1, dst0=1,
+            flags=(1 << isa.SET_FLAGS_FLAG_IDX)
+            | (1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES)),
+        enc(isa.MUL, src0=1, src1=1, dst0=2, dst1=3),
+        enc(isa.BINOP, isa.BINOP_XOR, src0=2, src1=1, dst0=4),
+        enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=1, condition=isa.COND_NE),
+        enc(isa.RET, isa.RET_OK),
+    ]
+    cycles = 1 << log_vm
+    dw = vm.prepare_device_witness(vm.NativeEraVM(vm.assemble_code_words(loop), cycles).run())
+    profile(f"main_vm eval 2^{log_vm} cycles", lambda: vm.eval_constraints(dw, cycles), card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,82 @@
+"""The port's device rule: an entry point that builds tensors from host data
+runs on the card unless the caller names the CPU, and raises when it is
+given no device and there is no card.  `torch.cuda.is_available` is patched
+to False, so the tests hold on a machine with a card too.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_vm_programs import PROGRAMS, run_vm
+from zkevm_circuits_tpu_torch.base_structures.decommit_query import DecommitQueries
+from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
+from zkevm_circuits_tpu_torch.base_structures.memory_query import MemoryQueries
+from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm
+from zkevm_circuits_tpu_torch.utils import convert, device
+from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _ram_fields(w):
+    q = lambda m: {k: getattr(m, k).numpy() for k in
+                   ("timestamp", "memory_page", "index", "rw_flag", "is_ptr", "value")}
+    out = {k: getattr(w, k).numpy().view(np.uint64) for k in
+           ("enc_unsorted", "enc_sorted", "chain_unsorted", "chain_sorted", "challenges",
+            "lhs", "rhs")}
+    out.update(n=w.n, snapshot_length=w.snapshot_length, execute=w.execute.numpy(),
+               nondet_count=w.nondet_count.numpy(), unsorted=q(w.unsorted), sorted=q(w.sorted))
+    return out
+
+
+def test_default_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device(None)
+    assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_default_device_is_the_first_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.default_device() == torch.device("cuda", 0)
+
+
+def test_entry_points_raise_without_a_device_or_a_card(no_card):
+    tapes = build_tapes_np(16)
+    cfg = ram.RamPermutationConfig(limit=16)
+    w = ram.generate_witness_host_tapes(*tapes, cfg, device="cpu")
+    _, vm_w = run_vm(vm.NativeEraVM, PROGRAMS["conditional_jump_loop"])
+    calls = [
+        lambda: ram.generate_witness_host_tapes(*tapes, cfg),
+        lambda: MemoryQueries.from_numpy(tapes[0]),
+        lambda: MemoryQueries.zeros((2,)),
+        lambda: MemoryQueries.from_lists([]),
+        lambda: LogQueries.zeros((2,)),
+        lambda: LogQueries.from_lists([dict(key=1)]),
+        lambda: DecommitQueries.zeros((2,)),
+        lambda: DecommitQueries.from_lists([dict(code_hash=1, page=2, timestamp=3)]),
+        lambda: convert.witness_from_numpy(_ram_fields(w)),
+        lambda: vm.prepare_device_witness(vm_w),
+        lambda: convert.vm_witness_from_numpy(vm_w),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # the same calls run when the CPU is named
+    assert convert.witness_from_numpy(_ram_fields(w), device="cpu").lhs.device.type == "cpu"
+    assert vm.prepare_device_witness(vm_w, device=torch.device("cpu"))["regs"].device.type == "cpu"
+
+
+def test_generate_witness_follows_its_inputs(no_card):
+    rows = [dict(timestamp=5 + i, memory_page=7, index=i, rw_flag=True, is_ptr=False, value=i)
+            for i in range(3)]
+    q = MemoryQueries.from_lists(rows, "cpu")
+    w = ram.generate_witness(q, q, ram.RamPermutationConfig(limit=4), backend="host")
+    assert w.lhs.device.type == "cpu" and w.n == 3
+    with pytest.raises(ValueError):
+        ram.generate_witness(q, q, ram.RamPermutationConfig(limit=4), backend="tpu")

@@ -1,5 +1,6 @@
-"""The torch port never imports jax: every module of zkevm_circuits_tpu_torch
-is imported in a fresh interpreter, and jax must not be in sys.modules."""
+"""The torch port never imports jax, the JAX package or bench.py: every module
+of zkevm_circuits_tpu_torch, and chip_smoke.py, is imported in a fresh
+interpreter, and none of them may be in sys.modules afterwards."""
 
 import os
 import subprocess
@@ -21,17 +22,26 @@ def _port_modules():
     return sorted(mods)
 
 
+# jax, the JAX package (even its modules that do not import jax) and bench.py
+# must all be absent after the port's modules are imported
+_FORBIDDEN_CHECK = (
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'zkevm_circuits_tpu', 'bench'))\n"
+    "assert not bad, bad\n"
+)
+
+
 def test_port_modules_import_without_jax():
     mods = _port_modules()
     assert "zkevm_circuits_tpu_torch.ops.poseidon2_cuda" in mods
     assert "zkevm_circuits_tpu_torch.prover.pipeline" in mods
+    assert "zkevm_circuits_tpu_torch.models.vm.circuit" in mods
+    assert "zkevm_circuits_tpu_torch.isa.opcodes" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-        "assert not bad, bad\n"
-        "assert 'zkevm_circuits_tpu.ops.gf' not in sys.modules\n"
+        + _FORBIDDEN_CHECK
     )
     env = dict(os.environ, PYTHONPATH=_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
@@ -40,7 +50,7 @@ def test_port_modules_import_without_jax():
 
 
 def test_chip_smoke_imports_no_jax():
-    code = "import sys; import chip_smoke; assert 'jax' not in sys.modules"
+    code = "import sys; import chip_smoke\n" + _FORBIDDEN_CHECK
     env = dict(os.environ, PYTHONPATH=_ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -111,7 +111,7 @@ def jax_side(tapes):
 @pytest.fixture(scope="module")
 def torch_side(tapes):
     cfg = ram.RamPermutationConfig(limit=N_ROWS, chain_stride=STRIDE)
-    w = ram.generate_witness_host_tapes(*tapes, cfg)
+    w = ram.generate_witness_host_tapes(*tapes, cfg, device="cpu")
     ok, proof, public, params = pipeline.prove_sorter_argument(w, StarkParams(**PARAMS))
     assert ok
     return w, proof, public, params
@@ -148,7 +148,7 @@ def test_proof_byte_identical_to_jax(torch_side, jax_side):
 
 
 def test_proof_from_jax_witness_identical(jax_side):
-    w = witness_from_numpy(_jax_witness_fields(jax_side[0]))
+    w = witness_from_numpy(_jax_witness_fields(jax_side[0]), device="cpu")
     ok, proof, _, _ = pipeline.prove_sorter_argument(w, StarkParams(**PARAMS))
     assert ok
     assert proof_to_ints(proof) == _jax_proof_to_ints(jax_side[1])

@@ -24,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 MEMORY_QUERY_PACKED_WIDTH = 8
 
 
@@ -42,9 +44,44 @@ class MemoryQueries:
     def shape(self):
         return tuple(self.timestamp.shape)
 
+    def __getitem__(self, idx) -> "MemoryQueries":
+        return MemoryQueries(
+            self.timestamp[idx], self.memory_page[idx], self.index[idx],
+            self.rw_flag[idx], self.is_ptr[idx], self.value[idx],
+        )
+
+    @staticmethod
+    def zeros(shape, device=None) -> "MemoryQueries":
+        device = resolve_device(device)
+        shape = tuple(shape)
+        z = torch.zeros(shape, dtype=torch.int64, device=device)
+        b = torch.zeros(shape, dtype=torch.bool, device=device)
+        return MemoryQueries(
+            z, z, z, b, b, torch.zeros(shape + (8,), dtype=torch.int64, device=device))
+
+    @staticmethod
+    def from_lists(rows, device=None) -> "MemoryQueries":
+        """rows: dicts with keys timestamp, memory_page, index, rw_flag,
+        is_ptr, value (value a python int < 2^256)."""
+        rows = list(rows)
+        tapes = dict(
+            timestamp=np.array([r["timestamp"] for r in rows], dtype=np.uint32),
+            memory_page=np.array([r["memory_page"] for r in rows], dtype=np.uint32),
+            index=np.array([r["index"] for r in rows], dtype=np.uint32),
+            rw_flag=np.array([bool(r["rw_flag"]) for r in rows], dtype=bool),
+            is_ptr=np.array([bool(r["is_ptr"]) for r in rows], dtype=bool),
+            value=np.array(
+                [[(int(r["value"]) >> (32 * k)) & 0xFFFFFFFF for k in range(8)] for r in rows],
+                dtype=np.uint32,
+            ).reshape(len(rows), 8),
+        )
+        return MemoryQueries.from_numpy(tapes, device)
+
     @staticmethod
     def from_numpy(tapes: dict, device=None) -> "MemoryQueries":
-        """tapes: {timestamp, memory_page, index, rw_flag, is_ptr, value (n, 8)}."""
+        """tapes: {timestamp, memory_page, index, rw_flag, is_ptr, value (n, 8)};
+        `device` None is the card (`utils.device.default_device`)."""
+        device = resolve_device(device)
 
         def u32(name):
             return torch.from_numpy(np.asarray(tapes[name]).astype(np.int64)).to(device)

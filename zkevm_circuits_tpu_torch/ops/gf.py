@@ -16,7 +16,9 @@ are written on int64, whose add, sub and mul wrap modulo 2^64:
 The 128 -> 64 reduction uses 2^64 == 2^32 - 1 and 2^96 == -1 (mod p), as
 the JAX package and the C++ runtime do.  Every op is elementwise and
 broadcasts like the torch ops it is made of; results are canonical unless
-the name says ``lazy``.
+the name says ``lazy``.  The JAX package's `expand_dims`, `stack` and `concat`
+are `unsqueeze`, `torch.stack` and `torch.cat` at the call site: a field
+tensor is a plain tensor.
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ def from_u64(x: Any, device=None) -> torch.Tensor:
 def to_u64(x: torch.Tensor) -> np.ndarray:
     """int64 tensor -> numpy uint64 with the same bits."""
     return x.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def from_u32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values (ints or bools, already < 2^32 <= p) as field elements."""
+    return x.to(torch.int64)
 
 
 def constant(value: int, device=None) -> torch.Tensor:
@@ -160,6 +167,17 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return canonicalize(mul_lazy(a, b))
 
 
+def double(a: torch.Tensor) -> torch.Tensor:
+    return add(a, a)
+
+
+def add_const(a: torch.Tensor, c: int) -> torch.Tensor:
+    c = int(c) % MODULUS
+    if c == 0:
+        return a
+    return add(a, constant(c, a.device))
+
+
 def square(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
@@ -219,6 +237,11 @@ def sum_mod(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def dot_mod(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return sum_mod(mul(a, b), dim)
+
+
+def equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """elementwise equality of canonical elements."""
+    return a == b
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,7 @@ import hashlib
 
 import torch
 
-from zkevm_circuits_tpu.utils.grain import poseidon2_goldilocks_constants
-
+from ..utils.grain import poseidon2_goldilocks_constants
 from . import gf
 
 WIDTH = 12

@@ -1,22 +1,159 @@
-"""Circuit queue states (the JAX package's `ops/queues.py`, the part the
-Fiat-Shamir challenge derivation needs).
+"""Circuit queues as tensor programs (the JAX package's `ops/queues.py`).
 
-A full-state queue's tail IS the 12-lane sponge state; a push replaces the
-rate lanes with the 8-element encoding and permutes.  The chains themselves
-are computed by the native runtime (`runtime/native.py`).
+A queue trace holds the per-element sponge states as dense columns.  The
+chain is sequential, but once it is written down, checking every transition
+`state[i+1] == absorb(state[i], enc[i])` is row-parallel: one batched
+Poseidon2 over all rows.
+
+Sponge conventions:
+  * Full-state queue (W = 12): the tail IS the 12-lane sponge state.
+    push(enc8): state' = P(state with the rate lanes replaced by enc8).
+  * Narrow queue (W = 4): the tail is 4 lanes.  push(enc_L):
+      s = zeros(12); s[8:12] = tail
+      for each 8-chunk of the zero-padded encoding: s[0:8] = chunk; s = P(s)
+      tail' = s[0:4]
+  * The length grows by 1 per executed push or pop.
+
+`simulate_chain` and `check_chain_segmented` step through the chain in a
+Python loop, one batched permutation (one kernel launch on the card) per
+step; bulk tapes go through the native runtime (`runtime/native.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import torch
+
+from . import gf, poseidon2
+
+FULL_STATE_WIDTH = 12
+NARROW_STATE_WIDTH = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class QueueState:
-    """head lanes, tail lanes, length (a python int)."""
+    """head lanes, tail lanes, length (a python int, or an int64 tensor of
+    the batch shape)."""
 
-    head: torch.Tensor  # (W,)
-    tail: torch.Tensor  # (W,)
-    length: int
+    head: torch.Tensor  # (..., W)
+    tail: torch.Tensor  # (..., W)
+    length: Union[int, torch.Tensor]
+
+    @property
+    def width(self) -> int:
+        return self.head.shape[-1]
+
+
+def empty_queue_state(width: int, batch_shape=(), device=None) -> QueueState:
+    z = gf.zeros(tuple(batch_shape) + (width,), device)
+    return QueueState(z, z, torch.zeros(tuple(batch_shape), dtype=torch.int64, device=device))
+
+
+def is_queue_empty(state: QueueState):
+    return state.length == 0
+
+
+def queue_states_equal(a: QueueState, b: QueueState):
+    heads = gf.equal(a.head, b.head).all(-1)
+    tails = gf.equal(a.tail, b.tail).all(-1)
+    return heads & tails & (a.length == b.length)
+
+
+# ---------------------------------------------------------------------------
+# single transitions (batch-parallel over the leading axes)
+# ---------------------------------------------------------------------------
+
+
+def full_state_transition(state: torch.Tensor, encoding: torch.Tensor, execute: torch.Tensor):
+    """W = 12 push; identity where not executed.
+    state (..., 12), encoding (..., 8), execute (...,) bool."""
+    new = poseidon2.absorb_round(encoding, state)
+    return gf.select(execute.unsqueeze(-1), new, state)
+
+
+def narrow_state_transition(tail: torch.Tensor, encoding: torch.Tensor, execute: torch.Tensor):
+    """W = 4 push (multi-chunk absorb); identity where not executed.
+    tail (..., 4), encoding (..., L), execute (...,) bool."""
+    batch = tuple(tail.shape[:-1])
+    dev = tail.device
+    length = encoding.shape[-1]
+    padded = length + (-length) % poseidon2.RATE
+    if padded != length:
+        encoding = torch.cat([encoding, gf.zeros(batch + (padded - length,), dev)], dim=-1)
+    state = torch.cat([gf.zeros(batch + (poseidon2.RATE,), dev), tail], dim=-1)
+    for i in range(0, padded, poseidon2.RATE):
+        state = poseidon2.absorb_round(encoding[..., i : i + poseidon2.RATE], state)
+    return gf.select(execute.unsqueeze(-1), state[..., :NARROW_STATE_WIDTH], tail)
+
+
+def transition(state_lanes: torch.Tensor, encoding: torch.Tensor, execute: torch.Tensor):
+    if state_lanes.shape[-1] == FULL_STATE_WIDTH:
+        return full_state_transition(state_lanes, encoding, execute)
+    return narrow_state_transition(state_lanes, encoding, execute)
+
+
+# ---------------------------------------------------------------------------
+# chains
+# ---------------------------------------------------------------------------
+
+
+def _all_executed(n: int, device) -> torch.Tensor:
+    return torch.ones((n,), dtype=torch.bool, device=device)
+
+
+def simulate_chain(
+    init_lanes: torch.Tensor, encodings: torch.Tensor, execute: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The sponge chain over n elements, all n + 1 states.
+
+    init_lanes (W,), encodings (n, L), execute (n,) bool or None.  Returns
+    (n + 1, W): states[0] == init, states[i+1] = push(states[i], enc[i]).
+    Sequential: for one instance's rows; bulk tapes use the native runtime."""
+    n = encodings.shape[0]
+    if execute is None:
+        execute = _all_executed(n, encodings.device)
+    states = [init_lanes]
+    for i in range(n):
+        states.append(transition(states[-1], encodings[i], execute[i]))
+    return torch.stack(states)
+
+
+def check_chain_segmented(
+    boundaries: torch.Tensor, encodings: torch.Tensor, execute: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Verify a sponge chain from its segment-boundary states only.
+
+    boundaries (S + 1, W): the chain state every `stride` = n / S rows;
+    encodings (n, L).  Every segment is recomputed from its start state, all
+    segments in parallel, `stride` sequential steps, and the landing states
+    are compared.  Returns (S,) bool."""
+    n = encodings.shape[0]
+    segments = boundaries.shape[0] - 1
+    if segments <= 0 or n % segments:
+        raise ValueError(f"{segments} segments do not divide {n} rows")
+    stride = n // segments
+    if execute is None:
+        execute = _all_executed(n, encodings.device)
+    # step-major, so that each step reads one contiguous (S, L) block
+    enc_steps = encodings.reshape((segments, stride) + tuple(encodings.shape[1:]))
+    enc_steps = enc_steps.transpose(0, 1).contiguous()
+    ex_steps = execute.reshape(segments, stride).t().contiguous()
+    state = boundaries[:-1]
+    for step in range(stride):
+        state = transition(state, enc_steps[step], ex_steps[step])
+    return gf.equal(state, boundaries[1:]).all(-1)
+
+
+def check_chain(
+    states: torch.Tensor, encodings: torch.Tensor, execute: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Row-parallel check that `states` (n + 1, W) is a valid sponge chain
+    over `encodings` (n, L): one batched Poseidon2 over all n rows.
+    Returns (n,) bool."""
+    n = encodings.shape[0]
+    if execute is None:
+        execute = _all_executed(n, encodings.device)
+    expected = transition(states[:-1], encodings, execute)
+    return gf.equal(expected, states[1:]).all(-1)

@@ -19,9 +19,8 @@ from typing import Optional
 
 import numpy as np
 
-from zkevm_circuits_tpu.utils.grain import poseidon2_goldilocks_constants
-
 from ..ops.gf import MODULUS
+from ..utils.grain import poseidon2_goldilocks_constants
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRCS = [
@@ -62,8 +61,17 @@ def get_lib() -> ctypes.CDLL:
             i64 = ctypes.c_int64
             lib.gl_poseidon2_init.argtypes = [u64p, u64p, u64p]
             lib.gl_poseidon2_init.restype = None
+            lib.gl_poseidon2_permute.argtypes = [u64p]
+            lib.gl_poseidon2_permute.restype = None
             lib.gl_poseidon2_permute_batch.argtypes = [u64p, i64]
             lib.gl_poseidon2_permute_batch.restype = None
+            lib.gl_full_state_chain.argtypes = [u64p, u64p, u8p, u64p, i64]
+            lib.gl_full_state_chain.restype = None
+            lib.gl_narrow_chain.argtypes = [u64p, u64p, u8p, u64p, i64, i64]
+            lib.gl_narrow_chain.restype = None
+            lib.gl_narrow_chains.argtypes = [u64p, u64p, u8p, u64p, i64, i64, i64]
+            lib.gl_narrow_chains.restype = None
+            # eravm_run's struct arguments are declared by models/vm/native_sim.py
             lib.gl_full_state_chains.argtypes = [u64p, u64p, u8p, u64p, i64, i64]
             lib.gl_full_state_chains.restype = None
             lib.gl_full_state_chains_strided.argtypes = [u64p, u64p, u8p, u64p, i64, i64, i64]
@@ -103,6 +111,25 @@ def _chain_args(encodings, execute, init):
     return enc, ex, ini, k, n
 
 
+def _execute_arg(execute, shape):
+    if execute is None:
+        return None
+    ex = np.ascontiguousarray(execute, dtype=np.uint8)
+    if ex.shape != shape:
+        raise ValueError(f"execute must be {shape}, got {ex.shape}")
+    return ex
+
+
+def poseidon2_permute(state: np.ndarray) -> np.ndarray:
+    """one permutation: (12,) u64 -> (12,) u64."""
+    lib = get_lib()
+    out = np.ascontiguousarray(state, dtype=np.uint64).copy()
+    if out.shape != (12,):
+        raise ValueError(f"state must be (12,), got {out.shape}")
+    lib.gl_poseidon2_permute(_u64p(out))
+    return out
+
+
 def poseidon2_permute_batch(states: np.ndarray) -> np.ndarray:
     """(B, 12) u64 -> permuted (B, 12) u64."""
     lib = get_lib()
@@ -131,4 +158,54 @@ def full_state_chains_strided(encodings, execute, init, stride: int) -> np.ndarr
         raise ValueError(f"stride {stride} must divide n = {n}")
     out = np.empty((k, n // stride + 1, 12), dtype=np.uint64)
     lib.gl_full_state_chains_strided(_u64p(out), _u64p(enc), _u8p(ex), _u64p(ini), k, n, stride)
+    return out
+
+
+def full_state_chain(encodings, execute, init) -> np.ndarray:
+    """One full-state chain: encodings (n, 8), execute (n,) or None,
+    init (12,) -> every state, (n + 1, 12)."""
+    lib = get_lib()
+    enc = np.ascontiguousarray(encodings, dtype=np.uint64)
+    if enc.ndim != 2 or enc.shape[1] != 8:
+        raise ValueError(f"encodings must be (n, 8), got {enc.shape}")
+    n = enc.shape[0]
+    ex = _execute_arg(execute, (n,))
+    ini = np.ascontiguousarray(init, dtype=np.uint64)
+    if ini.shape != (12,):
+        raise ValueError(f"init must be (12,), got {ini.shape}")
+    out = np.empty((n + 1, 12), dtype=np.uint64)
+    lib.gl_full_state_chain(_u64p(out), _u64p(enc), _u8p(ex), _u64p(ini), n)
+    return out
+
+
+def narrow_chains(encodings, execute, init) -> np.ndarray:
+    """K narrow (4-lane) chains: encodings (K, n, L), execute (K, n) or
+    None, init (K, 4) -> (K, n + 1, 4)."""
+    lib = get_lib()
+    enc = np.ascontiguousarray(encodings, dtype=np.uint64)
+    if enc.ndim != 3:
+        raise ValueError(f"encodings must be (K, n, L), got {enc.shape}")
+    k, n, enc_len = enc.shape
+    ex = _execute_arg(execute, (k, n))
+    ini = np.ascontiguousarray(init, dtype=np.uint64)
+    if ini.shape != (k, 4):
+        raise ValueError(f"init must be {(k, 4)}, got {ini.shape}")
+    out = np.empty((k, n + 1, 4), dtype=np.uint64)
+    lib.gl_narrow_chains(_u64p(out), _u64p(enc), _u8p(ex), _u64p(ini), k, n, enc_len)
+    return out
+
+
+def narrow_chain(encodings, execute, init) -> np.ndarray:
+    """One narrow chain: encodings (n, L), init (4,) -> (n + 1, 4)."""
+    lib = get_lib()
+    enc = np.ascontiguousarray(encodings, dtype=np.uint64)
+    if enc.ndim != 2:
+        raise ValueError(f"encodings must be (n, L), got {enc.shape}")
+    n, enc_len = enc.shape
+    ex = _execute_arg(execute, (n,))
+    ini = np.ascontiguousarray(init, dtype=np.uint64)
+    if ini.shape != (4,):
+        raise ValueError(f"init must be (4,), got {ini.shape}")
+    out = np.empty((n + 1, 4), dtype=np.uint64)
+    lib.gl_narrow_chain(_u64p(out), _u64p(enc), _u8p(ex), _u64p(ini), n, enc_len)
     return out

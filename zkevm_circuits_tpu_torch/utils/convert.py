@@ -5,7 +5,9 @@ and a proof as nested python ints.
 `witness_from_numpy` takes the fields of a ram_permutation witness as
 numpy arrays (field elements as u64) so that a witness made elsewhere (for
 instance by the JAX package) can be fed to the port's prover;
-`proof_to_ints` turns a `StarkProof` into nested lists of ints that compare
+`vm_witness_from_numpy` does the same for a main_vm witness dict;
+`proof_to_ints` turns a `StarkProof` into nested lists of ints, and
+`residuals_to_numpy` a residual dict into numpy arrays, so that both compare
 with `==`.
 """
 
@@ -16,16 +18,20 @@ import torch
 
 from ..base_structures.memory_query import MemoryQueries
 from ..models.ram_permutation import RamPermutationWitness
+from ..models.vm.circuit import prepare_device_witness as vm_witness_from_numpy  # noqa: F401
 from ..ops import gf
 from ..ops.gf import from_u64, to_u64  # noqa: F401  u64 numpy <-> field tensors
 from ..prover.stark import StarkProof
+from .device import resolve_device
 
 
 def witness_from_numpy(fields: dict, device=None) -> RamPermutationWitness:
     """fields: n, snapshot_length (ints); execute (N,) bool; unsorted and
     sorted as dicts of {timestamp, memory_page, index, rw_flag, is_ptr,
     value}; enc_unsorted, enc_sorted, chain_unsorted, chain_sorted,
-    challenges, lhs, rhs (u64 arrays); nondet_count (N,) ints."""
+    challenges, lhs, rhs (u64 arrays); nondet_count (N,) ints.  `device` None
+    is the card (`utils.device.default_device`)."""
+    device = resolve_device(device)
 
     def field(name):
         return gf.from_u64(np.asarray(fields[name], np.uint64), device)
@@ -45,6 +51,11 @@ def witness_from_numpy(fields: dict, device=None) -> RamPermutationWitness:
         nondet_count=torch.from_numpy(np.array(fields["nondet_count"], np.int64)).to(device),
         snapshot_length=int(fields["snapshot_length"]),
     )
+
+
+def residuals_to_numpy(residuals: dict) -> dict:
+    """A residual dict of bool tensors as a dict of numpy bool arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in residuals.items()}
 
 
 def _ints(a) -> list:
