@@ -4,13 +4,17 @@
 
 Phases, each printed on its own line:
   1. device: the card's name and power limit (nvidia-smi), then the build of
-     the CUDA Poseidon2 kernel (csrc/poseidon2.cu) with its build time;
-  2. kernel parity: the kernel against the plain torch permutation on the
-     card, bit for bit, on 2^16 random canonical states plus edge states and
-     at the paths' batch sizes (2^18 leaf states, 2^17 first tree level,
-     2^16 main_vm sponge states, 2^11 chain segments), and against the native
-     C++ permutation on 1,024 states; the kernel's and the plain version's
-     times at those sizes (CUDA events) beside the kernel's bound;
+     the three CUDA Poseidon2 kernels (csrc/poseidon2.cu with
+     csrc/poseidon2_coop.cuh) with the registers and spills ptxas reports for
+     each and the build time;
+  2. kernel parity: the thread-per-state kernel against the plain torch
+     permutation on the card, bit for bit, on 2^16 random canonical states
+     plus edge states and at the paths' batch sizes (2^18 leaf states, 2^17
+     first tree level, 2^16 main_vm sponge states, 2^11 states), and against
+     the native C++ permutation on 1,024 states; the lane-parallel small-batch
+     kernel against both at 1, 5, 2,048 and SMALL_BATCH - 1 states plus the
+     edge states; the kernels' and the plain version's times (CUDA events)
+     beside their bounds;
   3. small-input reference: the ram_permutation proof at 2^8 rows made on
      the card must equal, as nested ints, the one made on the CPU;
   4. main path: the ram_permutation witness from build_tapes_np(2^16) and
@@ -21,11 +25,18 @@ Phases, each printed on its own line:
   6. ram eval, small: at 2^10 rows in two instances, the residuals and the
      instance compact forms computed on the card equal those computed on the
      CPU, key by key;
-  7. ram eval, full width: a 2^20-row witness and `eval_constraints` on the
-     card (first run, then the mean of 3), all-true; witness seconds, rows/s,
-     kernel launches per evaluation (above 0), peak device memory; one changed
-     limb of sorted.value must fail `encoding_sorted` at its row and nothing
-     else;
+  7. ram eval, full width: a 2^20-row witness; on its chains the fused
+     segmented-chain kernel against the step loop, bit for bit, at (64 x 16)
+     with the plain permutation inside (there also against the port's own
+     plain version on the CPU) and at (2,048 x 512), all rows executed
+     and a tenth of them not, with the thread-per-state kernel inside, and its
+     times at (2,048 x 512) and (4,096 x 512); `eval_constraints` on the card
+     (first run, then the mean of 3), all-true; witness seconds, rows/s,
+     launches per evaluation of each kernel (the chain kernel above 0 and at
+     most 2, the thread-per-state kernel not once a chain step), peak device
+     memory; one changed limb of sorted.value must fail `encoding_sorted` at
+     its row and nothing else; one changed lane of one inner row of enc_sorted
+     must fail `check_chain_segmented` in that row's segment and in no other;
   8. main_vm, small: a 3-instruction program at limit 8, card residuals equal
      CPU residuals key by key;
   9. main_vm, full width: the benchmark loop through the native EraVM for 2^16
@@ -34,8 +45,8 @@ Phases, each printed on its own line:
      (above 0), peak device memory; one changed register limb must fail.
 
 Entry points are called without a device here: they must pick the card.
-Then one JSON line with the kernel's record (its time against its bound, the
-launches of each path), the nvidia-smi line, and as the last line
+Then one JSON line with the three kernels' records (each one's time against
+its bound, its launches on each path), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; without
 a CUDA card the script stops before printing any result.
 """
@@ -70,6 +81,9 @@ INT32_INSTR_PER_STATE = PRODUCTS_PER_STATE * 20 + ADDITIONS_PER_STATE * 6
 INT32_LANES = 132 * 64
 HBM_BYTES_PER_S = 3.35e12
 BYTES_PER_STATE = 2 * 12 * 8
+KERNEL_SOURCE = "zkevm_circuits_tpu_torch/csrc/poseidon2.cu"
+COOP_SOURCE = "zkevm_circuits_tpu_torch/csrc/poseidon2_coop.cuh"
+REPLACES = "zkevm_circuits_tpu/ops/poseidon2_pallas.py:89"
 
 
 def _fail(msg):
@@ -100,13 +114,26 @@ def kernel_bound_ms(n_states, clock_hz):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def chain_bound_ms(executed_rows, rows, segments, clock_hz):
+    """(least ms for a segmented chain, what bounds it): one permutation for
+    each executed row; each encoding (64 bytes) and execute byte read once, the
+    boundary states read and the landing states written once."""
+    ops_ms = 1000 * executed_rows * INT32_INSTR_PER_STATE / (INT32_LANES * clock_hz)
+    bytes_ms = 1000 * (rows * 65 + (2 * segments + 1) * 96) / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def time_ms(fn, arg, reps):
-    """mean ms per call over `reps` calls after two warm-up calls (CUDA events)."""
+    """mean ms per call over `reps` calls after two warm-up calls (CUDA events).
+    The card is kept busy for some 10 ms before the first event, so that a
+    small kernel's launches are all queued behind it and the events see the
+    card's time, not the host's time to launch."""
     for _ in range(2):
         fn(arg)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # torch's own spin kernel; an upgrade that drops it fails here
     start.record()
     for _ in range(reps):
         fn(arg)
@@ -122,10 +149,29 @@ def max_abs_err(a, b):
     return max(abs(int(x) - int(y)) for x, y in zip(a[diff], b[diff]))
 
 
+def step_loop(boundaries, encodings, execute, permutation):
+    """The segmented chain by one batched permutation a step: where every
+    segment lands, (S, 12)."""
+    segments = boundaries.shape[0] - 1
+    enc = encodings.reshape(segments, -1, 8)
+    run = execute.reshape(segments, -1)
+    state = boundaries[:-1]
+    for step in range(enc.shape[1]):
+        new = permutation(torch.cat([enc[:, step], state[:, 8:]], dim=-1))
+        state = torch.where(run[:, step, None], new, state)
+    return state
+
+
 def kernel_parity(dev, card, clock_hz):
     from zkevm_circuits_tpu_torch.ops import gf, poseidon2
-    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import permutation_cuda
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import SMALL_BATCH, permutation_cuda
     from zkevm_circuits_tpu_torch.runtime import native
+
+    def thread_kernel(x):
+        return permutation_cuda(x, route="thread")
+
+    def small_kernel(x):
+        return permutation_cuda(x, route="small")
 
     p = gf.MODULUS
     rng = np.random.default_rng(2026)
@@ -142,25 +188,27 @@ def kernel_parity(dev, card, clock_hz):
         _fail(f"kernel != plain torch on {states.shape[0]} states (max |diff| {err})")
     if not np.array_equal(got_np[:1024], native.poseidon2_permute_batch(states[:1024])):
         _fail("kernel != native C++ permutation on 1024 states")
-    print(f"parity: kernel == plain torch on {states.shape[0]} states (incl. {len(edge)} edge), "
-          f"== native C++ on 1024 states", flush=True)
+    if states.shape[0] < SMALL_BATCH:
+        _fail(f"{states.shape[0]} states do not reach the thread-per-state kernel")
+    print(f"parity: thread-per-state kernel == plain torch on {states.shape[0]} states (incl. "
+          f"{len(edge)} edge), == native C++ on 1024 states", flush=True)
 
     record = None
     shapes = []
     for log_b, what in ((18, "leaf hashing"), (17, "first tree level"),
                         (LOG2_VM_CYCLES, "main_vm sponges, one state a cycle"),
-                        (LOG2_RAM_EVAL_ROWS - 9, "one step of the segmented chain recompute")):
+                        (11, "below SMALL_BATCH: no path sends it this batch any more")):
         st = gf.from_u64(rng.integers(0, p, size=(1 << log_b, 12), dtype=np.uint64), dev)
-        got_np = gf.to_u64(permutation_cuda(st))
+        got_np = gf.to_u64(thread_kernel(st))
         plain_np = gf.to_u64(poseidon2.permutation_plain(st))
         torch.cuda.synchronize()
         err = max_abs_err(got_np, plain_np)
         if err:
             _fail(f"kernel != plain torch at 2^{log_b} states (max |diff| {err})")
-        ms = time_ms(permutation_cuda, st, 20)
+        ms = time_ms(thread_kernel, st, 20)
         plain_ms = time_ms(poseidon2.permutation_plain, st, 3)
         bound_ms, bound_by = kernel_bound_ms(1 << log_b, clock_hz)
-        print(f"timing: 2^{log_b} states ({what}): kernel {ms:.4f} ms, plain torch "
+        print(f"timing: 2^{log_b} states ({what}): thread-per-state kernel {ms:.4f} ms, plain torch "
               f"{plain_ms:.4f} ms, {1000 * (1 << log_b) / ms / 1e6:.1f} M perm/s; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({INT32_INSTR_PER_STATE} int32 instructions a "
               f"state at {clock_hz / 1e6:.0f} MHz), {100 * bound_ms / ms:.1f} % of it reached; "
@@ -170,7 +218,40 @@ def kernel_parity(dev, card, clock_hz):
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
     record["shapes"] = shapes
-    return record
+
+    # the lane-parallel small-batch kernel: the same bits as both
+    small_err = 0
+    for n in (1, 5, 2048, SMALL_BATCH - 1):
+        raw = rng.integers(0, p, size=(n, 12), dtype=np.uint64)
+        raw[: min(n, len(edge))] = edge[:n]
+        st = gf.from_u64(raw, dev)
+        got_np = gf.to_u64(small_kernel(st))
+        torch.cuda.synchronize()
+        small_err = max(small_err, max_abs_err(got_np, gf.to_u64(poseidon2.permutation_plain(st))),
+                        max_abs_err(got_np, gf.to_u64(thread_kernel(st))))
+        if small_err:
+            _fail(f"small-batch kernel != plain torch or thread-per-state kernel at {n} states "
+                  f"(max |diff| {small_err})")
+    print(f"parity: small-batch kernel == plain torch == thread-per-state kernel at 1, 5, 2048 "
+          f"and {SMALL_BATCH - 1} states (incl. the edge states)", flush=True)
+    small = None
+    small_shapes = []
+    for log_b, what in ((11, "Merkle level, chain step of a narrow queue"),
+                        (12, "Merkle level"), (0, "transcript sponge, challenge pull")):
+        st = gf.from_u64(rng.integers(0, p, size=(1 << log_b, 12), dtype=np.uint64), dev)
+        ms = time_ms(small_kernel, st, 20)
+        plain_ms = time_ms(poseidon2.permutation_plain, st, 3)
+        bound_ms, bound_by = kernel_bound_ms(1 << log_b, clock_hz)
+        print(f"timing: 2^{log_b} states ({what}): small-batch kernel {ms:.4f} ms, plain torch "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {bound_by}, "
+              f"{100 * bound_ms / ms:.1f} % of it reached; library call: none [{card}]",
+              flush=True)
+        small_shapes.append(dict(states=1 << log_b, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
+        if small is None:
+            small = dict(max_abs_err=small_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    small["shapes"] = small_shapes
+    return record, small
 
 
 def small_reference(dev):
@@ -210,7 +291,7 @@ def main_path(dev, card):
     tapes = build_tapes_np(n)
     cfg = ram.RamPermutationConfig(limit=n, chain_stride=CHAIN_STRIDE)
     torch.cuda.synchronize()
-    KERNEL.launches = 0
+    KERNEL.reset_counts()
     t0 = time.perf_counter()
     w = ram.generate_witness_host_tapes(*tapes, cfg)
     torch.cuda.synchronize()
@@ -221,23 +302,24 @@ def main_path(dev, card):
             _fail(f"witness field {name} is on {getattr(w, name).device}")
     seconds = []
     for run in ("first", "steady"):
-        before = KERNEL.launches
+        before = KERNEL.counts()
         t0 = time.perf_counter()
         ok, proof, public, params = pipeline.prove_sorter_argument(w)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if not ok:
             _fail(f"{run} prove+verify at 2^{LOG2_ROWS} rows did not verify")
-        if KERNEL.launches <= before:
-            _fail(f"{run} proof launched the Poseidon2 kernel {KERNEL.launches - before} times")
-    launches = KERNEL.launches
+        for name in ("permutation", "permutation_small"):
+            if KERNEL.counts()[name] <= before[name]:
+                _fail(f"{run} proof did not launch the {name} kernel")
+    launches = KERNEL.counts()
     out = gf.to_u64(public)
     if out.shape != (pipeline.NUM_REPS,) or not np.array_equal(out, gf.to_u64(w.rhs[-1])):
         _fail("public final products do not match the witness's rhs")
     print(f"main path: witness 2^{LOG2_ROWS} rows {witness_s:.3f} s; prove+verify first "
           f"{seconds[0]:.3f} s ({n / seconds[0]:.1f} rows/s), steady {seconds[1]:.3f} s "
           f"({n / seconds[1]:.1f} rows/s); log_n={params.log_n} queries={params.num_queries}; "
-          f"kernel launches {launches} [{card}]", flush=True)
+          f"kernel launches over the witness and both proofs {launches} [{card}]", flush=True)
     return proof, public, params, launches
 
 
@@ -270,24 +352,26 @@ def _same_residuals(card_res, cpu_res, what):
 
 def timed_evals(evaluate, kernel):
     """first and steady (mean of EVAL_REPS) seconds of `evaluate`, each ended by
-    a synchronize; the kernel's launches over one evaluation; the residuals of
+    a synchronize; each kernel's launches over one evaluation; the residuals of
     the last one; peak device memory in bytes."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    kernel.reset_counts()
     t0 = time.perf_counter()
     res = evaluate()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = kernel.counts()
     t0 = time.perf_counter()
     for _ in range(EVAL_REPS):
         res = evaluate()
     torch.cuda.synchronize()
     steady_s = (time.perf_counter() - t0) / EVAL_REPS
-    if kernel.launches != (1 + EVAL_REPS) * launches:
+    if kernel.counts() != {k: (1 + EVAL_REPS) * v for k, v in launches.items()}:
         _fail(f"kernel launches per evaluation changed: {launches} then "
-              f"{kernel.launches - launches} over {EVAL_REPS}")
+              f"{kernel.counts()} after {EVAL_REPS} more")
+    if not sum(launches.values()):
+        _fail("the evaluation launched no Poseidon2 kernel")
     return first_s, steady_s, launches, res, torch.cuda.max_memory_allocated()
 
 
@@ -323,11 +407,9 @@ def ram_eval_small(dev):
           f"forms on the card == on the CPU, all true", flush=True)
 
 
-def ram_eval_full(dev, card):
-    import dataclasses
-
+def ram_witness_full(dev):
+    """the 2^20-row witness on the card, its config and the seconds it took."""
     from zkevm_circuits_tpu_torch.models import ram_permutation as ram
-    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
     from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
 
     n = 1 << LOG2_RAM_EVAL_ROWS
@@ -340,10 +422,100 @@ def ram_eval_full(dev, card):
     witness_s = time.perf_counter() - t0
     if w.enc_sorted.device.type != dev.type or w.enc_sorted.shape != (n, 8):
         _fail(f"ram witness: enc_sorted {tuple(w.enc_sorted.shape)} on {w.enc_sorted.device}")
+    if w.chain_sorted.shape != (n // CHAIN_STRIDE + 1, 12) or not bool(w.execute.all()):
+        _fail("ram witness: boundary states or execute mask are not as expected")
+    return w, cfg, witness_s
+
+
+def chain_kernel_parity(w, card, clock_hz):
+    """The fused chain kernel against the step loop on the witness's own chains,
+    bit for bit, and its times at the evaluation's shape and at twice it."""
+    from zkevm_circuits_tpu_torch.ops import gf, poseidon2, queues
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import chain_segmented_cuda, permutation_cuda
+
+    def thread_kernel(x):
+        return permutation_cuda(x, route="thread")
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        err = max_abs_err(gf.to_u64(got), gf.to_u64(want))
+        if err:
+            _fail(f"chain kernel != step loop {what} (max |diff| {err})")
+        return err
+
+    rng = np.random.default_rng(512)
+    sorted_chain = (w.chain_sorted, w.enc_sorted, w.execute)
+    unsorted_chain = (w.chain_unsorted, w.enc_unsorted, w.execute)
+    segments = w.chain_sorted.shape[0] - 1
+    rows = w.enc_sorted.shape[0]
+
+    # (64 x 16) with about a tenth of the rows not executed, the plain permutation inside
+    small = (w.chain_sorted[:65].contiguous(), w.enc_sorted[: 64 * 16].contiguous(),
+             torch.from_numpy(rng.random(64 * 16) >= 0.1).to(w.execute.device))
+    landing = chain_segmented_cuda([small])[0]
+    err = same(landing, step_loop(*small, poseidon2.permutation_plain), "at (64 x 16)")
+    # and the plain version the port itself runs on CPU tensors
+    err = max(err, same(landing, queues.segment_landing_states_plain(*(x.cpu() for x in small)),
+                        "at (64 x 16), the port's plain version on the CPU"))
+    # the evaluation's shape: all rows executed (the landing states are the
+    # witness's own boundaries), then a tenth of them not; both chains in one launch
+    both = chain_segmented_cuda([unsorted_chain, sorted_chain])
+    err = max(err, same(both[1], step_loop(*sorted_chain, thread_kernel),
+                        f"at ({segments} x {CHAIN_STRIDE}), all executed"))
+    err = max(err, same(both[0], w.chain_unsorted[1:], "against the witness's boundaries"))
+    mixed = (w.chain_sorted, w.enc_sorted,
+             torch.from_numpy(rng.random(rows) >= 0.1).to(w.execute.device))
+    err = max(err, same(chain_segmented_cuda([mixed])[0], step_loop(*mixed, thread_kernel),
+                        f"at ({segments} x {CHAIN_STRIDE}), a tenth not executed"))
+    print(f"parity: chain kernel == step loop at (64 x 16) with the plain permutation == "
+          f"queues.segment_landing_states_plain on the CPU, and at "
+          f"({segments} x {CHAIN_STRIDE}) with the thread-per-state kernel, all rows executed "
+          f"and {int((~mixed[2]).sum())} of {rows} not", flush=True)
+
+    # twice the shape, for the timing only: both chains end to end
+    double = (torch.cat([w.chain_unsorted[:-1], w.chain_sorted]),
+              torch.cat([w.enc_unsorted, w.enc_sorted]), torch.cat([w.execute, w.execute]))
+    record = None
+    shapes = []
+    for what, chains in ((f"one chain ({segments} x {CHAIN_STRIDE})", [sorted_chain]),
+                         (f"both chains of the evaluation, one launch (2 x {segments} x "
+                          f"{CHAIN_STRIDE})", [unsorted_chain, sorted_chain]),
+                         (f"one chain ({2 * segments} x {CHAIN_STRIDE})", [double])):
+        ms = time_ms(chain_segmented_cuda, chains, 20)
+        plain_ms = time_ms(lambda cs: [step_loop(*c, thread_kernel) for c in cs], chains, 1)
+        executed = sum(int(c[2].sum()) for c in chains)
+        bound_ms, bound_by = chain_bound_ms(
+            executed, sum(c[1].shape[0] for c in chains),
+            sum(c[0].shape[0] - 1 for c in chains), clock_hz)
+        print(f"timing: chain kernel, {what}: {ms:.4f} ms, the step loop through the "
+              f"thread-per-state kernel {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({executed} permutations), {100 * bound_ms / ms:.1f} % of it reached; library "
+              f"call: none [{card}]", flush=True)
+        shapes.append(dict(what=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms))
+        if len(chains) == 2:  # the shape the evaluation launches
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+    record["shapes"] = shapes
+    return record
+
+
+def ram_eval_full(dev, card, w, cfg, witness_s):
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.models import ram_permutation as ram
+    from zkevm_circuits_tpu_torch.ops import queues
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+
+    n = 1 << LOG2_RAM_EVAL_ROWS
     first_s, steady_s, launches, res, peak = timed_evals(
         lambda: ram.eval_constraints(w, cfg), KERNEL)
-    if launches <= 0:
-        _fail("ram eval launched the Poseidon2 kernel no time")
+    if not 0 < launches["chain_segmented"] <= 2:
+        _fail(f"ram eval launched the chain kernel {launches['chain_segmented']} times")
+    if launches["permutation"] >= CHAIN_STRIDE:
+        _fail(f"ram eval still launches the thread-per-state kernel once a chain step: "
+              f"{launches['permutation']} launches")
+    if launches["permutation_small"] <= 0:
+        _fail("ram eval launched the small-batch kernel no time (the challenge pulls)")
     if any(v.device.type != dev.type for v in res.values()):
         _fail("ram eval: a residual is not on the card")
     bad = [k for k, v in res.items() if not bool(v.all())]
@@ -356,6 +528,19 @@ def ram_eval_full(dev, card):
           f"{steady_s:.4f} s ({n / steady_s:.1f} rows/s), {len(res)} residuals all true; kernel "
           f"launches per evaluation {launches}; peak device memory {peak / 2**20:.1f} MiB "
           f"[{card}]", flush=True)
+
+    # negative probe on the chain call: one lane of one inner row of a segment
+    row = 1234 * CHAIN_STRIDE + 77
+    enc = w.enc_sorted.clone()
+    enc[row, 3] ^= 1
+    ok = queues.check_chain_segmented(w.chain_sorted, enc, w.execute)
+    failing = torch.nonzero(~ok).flatten().tolist()
+    if ok.shape != (n // CHAIN_STRIDE,) or failing != [row // CHAIN_STRIDE]:
+        _fail(f"chain negative probe: expected segment {row // CHAIN_STRIDE} alone to fail, "
+              f"got {failing[:8]}")
+    print(f"chain negative probe: a changed lane of enc_sorted at row {row} fails segment "
+          f"{row // CHAIN_STRIDE} and none of the other {ok.shape[0] - 1}", flush=True)
+    del enc
 
     # negative probe: the stored encoding no longer matches the changed field
     row = n // 3
@@ -424,8 +609,8 @@ def vm_eval_full(dev, card):
         _fail(f"main_vm witness: regs {tuple(dw['regs'].shape)} on {dw['regs'].device}")
     first_s, steady_s, launches, res, peak = timed_evals(
         lambda: vm.eval_constraints(dw, n), KERNEL)
-    if launches <= 0:
-        _fail("main_vm eval launched the Poseidon2 kernel no time")
+    if launches["permutation"] <= 0:
+        _fail("main_vm eval launched the thread-per-state kernel no time")
     bad = [k for k, v in res.items() if v.shape != (n,) or not bool(v.all())]
     if bad or not vm.all_ok(res):
         _fail(f"main_vm eval at 2^{LOG2_VM_CYCLES} cycles: residuals {bad} are false")
@@ -461,30 +646,36 @@ def main():
     t0 = time.perf_counter()
     poseidon2_cuda.build(verbose=True)
     poseidon2_cuda.KERNEL.lib(dev)
-    print(f"build: csrc/poseidon2.cu with nvcc {' '.join(poseidon2_cuda.NVCC_FLAGS)}, "
-          f"built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: csrc/poseidon2.cu (with poseidon2_coop.cuh; the registers and spills of "
+          f"its kernels are above) with nvcc {' '.join(poseidon2_cuda.NVCC_FLAGS)}, built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    record = kernel_parity(dev, card, clock_hz)
+    records = {}
+    records["permutation"], records["permutation_small"] = kernel_parity(dev, card, clock_hz)
     small_reference(dev)
     proof, public, params, launches_prove = main_path(dev, card)
     negative_probe(proof, public, params)
     ram_eval_small(dev)
-    launches_ram_eval = ram_eval_full(dev, card)
+    w, cfg, witness_s = ram_witness_full(dev)
+    records["chain_segmented"] = chain_kernel_parity(w, card, clock_hz)
+    launches_ram_eval = ram_eval_full(dev, card, w, cfg, witness_s)
+    del w
+    torch.cuda.empty_cache()
     vm_eval_small(dev)
     launches_vm_eval = vm_eval_full(dev, card)
 
-    kernel = dict(
-        name="poseidon2_permutation",
-        route="cuda",
-        source="zkevm_circuits_tpu_torch/csrc/poseidon2.cu",
-        replaces="zkevm_circuits_tpu/ops/poseidon2_pallas.py:89",
-        launches=launches_prove + launches_ram_eval + launches_vm_eval,
-        launches_prove=launches_prove,
-        launches_ram_eval=launches_ram_eval,
-        launches_vm_eval=launches_vm_eval,
-        **record,
-    )
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
+                   chain_segmented=COOP_SOURCE)
+    kernels = []
+    for key, record in records.items():
+        by_path = dict(launches_prove=launches_prove[key], launches_ram_eval=launches_ram_eval[key],
+                       launches_vm_eval=launches_vm_eval[key])
+        if not sum(by_path.values()):
+            _fail(f"no path launched the {key} kernel")
+        kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],
+                            replaces=REPLACES, launches=sum(by_path.values()), **by_path,
+                            **record))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
-"""Where the time goes in the torch port's two constraint evaluations, on one
-CUDA card.
+"""Where the time goes in the torch port's two constraint evaluations and in
+its prove+verify, on one CUDA card.
 
-    python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles]
+    python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles] [log2_prove_rows]
 
-For ram_permutation.eval_constraints (default 2^20 rows, chain stride 512) and
-vm.eval_constraints (default 2^16 cycles) it prints: the steady wall time of
+For ram_permutation.eval_constraints (default 2^20 rows, chain stride 512),
+vm.eval_constraints (default 2^16 cycles) and prove_sorter_argument (default
+2^16 rows) it prints: the steady wall time of
 one evaluation without the profiler (host clock around a synchronize), then
 from a torch.profiler window over one evaluation the window's wall time, the
-number of device kernels, the device's busy time and share, the Poseidon2
-kernel's launches and device time, and the ten kernels with the most device
-time.  For the ram evaluation it also times the chain recompute alone, and
-the witness generation with the native host chains' share of it.  Every
+number of device kernels, the device's busy time and share, the launches and
+device time of each of the three Poseidon2 kernels (thread-per-state,
+small-batch, fused chain) and of all of them, the device time of everything
+else, and the ten kernels with the most device time.  For the ram evaluation
+it also times the two chain recomputes alone (one call, as the evaluation
+makes it), and the witness generation with the native host chains' share of
+it.  Every
 line carries the card's name and power limit.  Needs a CUDA card.
 """
 
@@ -30,6 +34,7 @@ from zkevm_circuits_tpu_torch.base_structures.memory_query import (  # noqa: E40
 from zkevm_circuits_tpu_torch.isa import opcodes as isa  # noqa: E402
 from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm  # noqa: E402
 from zkevm_circuits_tpu_torch.ops import queues  # noqa: E402
+from zkevm_circuits_tpu_torch.prover import pipeline  # noqa: E402
 from zkevm_circuits_tpu_torch.runtime import native  # noqa: E402
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np  # noqa: E402
 
@@ -67,11 +72,18 @@ def profile(name, fn, card):
     busy = sum(r[2] for r in rows)
     kernels = sum(r[1] for r in rows)
     pos = [r for r in rows if "poseidon2" in r[0]]
+    pos_ms = sum(r[2] for r in pos)
+    by_kernel = "; ".join(
+        f"{what} {sum(r[1] for r in pos if mark in r[0])} launches, "
+        f"{sum(r[2] for r in pos if mark in r[0]):.2f} ms"
+        for what, mark in (("thread-per-state", "permute_kernel"),
+                           ("small-batch", "permute_small"), ("fused chain", "chain_segmented")))
     print(f"{name}: steady {1000 * steady:.1f} ms without the profiler; profiled window "
           f"{1000 * window:.1f} ms, {kernels} device kernels, device busy {busy:.1f} ms "
           f"({100 * busy / (1000 * window):.1f} % of the window, {100 * busy / (1000 * steady):.1f}"
-          f" % of the steady wall); Poseidon2 kernel {sum(r[1] for r in pos)} launches, "
-          f"{sum(r[2] for r in pos):.2f} ms [{card}]", flush=True)
+          f" % of the steady wall); Poseidon2 kernels {sum(r[1] for r in pos)} launches, "
+          f"{pos_ms:.2f} ms ({by_kernel}); every other kernel {busy - pos_ms:.2f} ms "
+          f"[{card}]", flush=True)
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
         print(f"    {ms:9.2f} ms  {count:7d} x  {key[:100]}", flush=True)
     return steady
@@ -82,6 +94,7 @@ def main():
         raise RuntimeError("no CUDA device: this profile is taken on the card")
     log_ram = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     log_vm = int(sys.argv[2]) if len(sys.argv) > 2 else 16
+    log_prove = int(sys.argv[3]) if len(sys.argv) > 3 else 16
     card = card_line()
 
     n = 1 << log_ram
@@ -99,9 +112,9 @@ def main():
     print(f"ram witness 2^{log_ram} rows: {witness_s:.3f} s, of which the two native sponge "
           f"chains on the host {chains_s:.3f} s [{card}]", flush=True)
     steady = profile(f"ram eval 2^{log_ram} rows", lambda: ram.eval_constraints(w, cfg), card)
-    chains = wall(lambda: (
-        queues.check_chain_segmented(w.chain_unsorted, w.enc_unsorted, w.execute),
-        queues.check_chain_segmented(w.chain_sorted, w.enc_sorted, w.execute)))
+    chains = wall(lambda: queues.check_chains_segmented([
+        (w.chain_unsorted, w.enc_unsorted, w.execute),
+        (w.chain_sorted, w.enc_sorted, w.execute)]))
     print(f"ram eval 2^{log_ram} rows: the two segmented chain recomputes alone "
           f"{1000 * chains:.1f} ms of {1000 * steady:.1f} ms [{card}]", flush=True)
     del w
@@ -121,6 +134,18 @@ def main():
     cycles = 1 << log_vm
     dw = vm.prepare_device_witness(vm.NativeEraVM(vm.assemble_code_words(loop), cycles).run())
     profile(f"main_vm eval 2^{log_vm} cycles", lambda: vm.eval_constraints(dw, cycles), card)
+    del dw
+    torch.cuda.empty_cache()
+
+    rows = 1 << log_prove
+    pw = ram.generate_witness_host_tapes(
+        *build_tapes_np(rows), ram.RamPermutationConfig(limit=rows, chain_stride=512))
+
+    def prove_and_verify():
+        if not pipeline.prove_sorter_argument(pw)[0]:
+            raise RuntimeError("the proof did not verify")
+
+    profile(f"prove+verify 2^{log_prove} rows", prove_and_verify, card)
 
 
 if __name__ == "__main__":

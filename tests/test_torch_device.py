@@ -13,6 +13,7 @@ from zkevm_circuits_tpu_torch.base_structures.decommit_query import DecommitQuer
 from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
 from zkevm_circuits_tpu_torch.base_structures.memory_query import MemoryQueries
 from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm
+from zkevm_circuits_tpu_torch.ops import fri, gf, poseidon2, queues
 from zkevm_circuits_tpu_torch.utils import convert, device
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
 
@@ -70,6 +71,26 @@ def test_entry_points_raise_without_a_device_or_a_card(no_card):
     # the same calls run when the CPU is named
     assert convert.witness_from_numpy(_ram_fields(w), device="cpu").lhs.device.type == "cpu"
     assert vm.prepare_device_witness(vm_w, device=torch.device("cpu"))["regs"].device.type == "cpu"
+
+
+def test_state_constructors_raise_without_a_device_or_a_card(no_card):
+    for call in (fri.Transcript, lambda: queues.empty_queue_state(12, (3,)),
+                 lambda: poseidon2.empty_state((2,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tr = fri.Transcript("cpu")
+    tr.absorb(gf.ones((3,), "cpu"))
+    assert tr.challenge_ext().c0.device.type == "cpu"
+    q = queues.empty_queue_state(4, (2,), device="cpu")
+    assert q.head.device.type == q.tail.device.type == q.length.device.type == "cpu"
+    assert q.head.shape == (2, 4) and q.length.shape == (2,)
+    assert poseidon2.empty_state((2,), torch.device("cpu")).shape == (2, 12)
+
+
+def test_raw_field_constructors_keep_torchs_default_device(no_card):
+    for x in (gf.zeros((2,)), gf.ones((2,)), gf.constant(5), gf.from_u64([1, 2]),
+              gf.geometric(7, 4)):
+        assert x.device.type == "cpu" and x.dtype == torch.int64
 
 
 def test_generate_witness_follows_its_inputs(no_card):

@@ -1,5 +1,7 @@
-"""The port's hand-written CUDA kernel (csrc/poseidon2.cu) against its plain
-torch version and the native C++ permutation.  Tolerance: exact.
+"""The port's hand-written CUDA permutation (csrc/poseidon2.cu: the
+thread-per-state kernel and, below `SMALL_BATCH` states, the lane-parallel one)
+against its plain torch version and the native C++ permutation.  Tolerance:
+exact.  The chain kernel's tests are in tests/test_torch_chain_kernel.py.
 
 This file imports no jax, so it also runs on a GPU host without the JAX
 package:  python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
@@ -39,12 +41,16 @@ def test_wrapper_refuses_cpu_tensors():
         permutation_cuda(gf.from_u64(_states(5, 8)))
 
 
+def _launches():
+    return sum(KERNEL.counts().values())
+
+
 def test_dispatch_sends_cpu_tensors_to_plain_version():
     st = gf.from_u64(_states(7, 8))
-    before = KERNEL.launches
+    before = _launches()
     np.testing.assert_array_equal(gf.to_u64(poseidon2.permutation(st)),
                                   gf.to_u64(poseidon2.permutation_plain(st)))
-    assert KERNEL.launches == before
+    assert _launches() == before
 
 
 @pytest.fixture
@@ -55,14 +61,14 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 127, 4096])
+@pytest.mark.parametrize("n", [1, 127, 4096, 1 << 14])
 def test_kernel_matches_plain_and_native(cuda_device, n):
     st_np = _states(6, n) if n >= 4 else _states(6, 4)[:n]
     st = gf.from_u64(st_np, cuda_device)
-    before = KERNEL.launches
+    before = _launches()
     got = permutation_cuda(st)
     torch.cuda.synchronize()
-    assert KERNEL.launches == before + 1
+    assert _launches() == before + 1
     np.testing.assert_array_equal(gf.to_u64(got), gf.to_u64(poseidon2.permutation_plain(st)))
     np.testing.assert_array_equal(gf.to_u64(got)[:256], native.poseidon2_permute_batch(st_np[:256]))
 
@@ -70,9 +76,9 @@ def test_kernel_matches_plain_and_native(cuda_device, n):
 @pytest.mark.gpu
 def test_dispatch_sends_cuda_tensors_to_kernel(cuda_device):
     st = gf.from_u64(_states(8, 16).reshape(2, 8, 12), cuda_device)
-    before = KERNEL.launches
+    before = _launches()
     out = poseidon2.permutation(st)
-    assert KERNEL.launches == before + 1 and out.shape == st.shape
+    assert _launches() == before + 1 and out.shape == st.shape
 
 
 @pytest.mark.gpu

@@ -148,7 +148,7 @@ def test_gf2_from_base():
 
 
 def test_transcript_matches_jax():
-    ours, theirs = fri.Transcript(), jfri.Transcript()
+    ours, theirs = fri.Transcript("cpu"), jfri.Transcript()
     for seed, n in ((50, 8), (51, 3), (52, 17)):
         x = _rand(seed, n)
         ours.absorb(gf.from_u64(x))

@@ -22,13 +22,23 @@
 // Inputs are (N, 12) row-major; a thread's 96-byte row is read uncoalesced,
 // which costs little against the arithmetic.
 //
+// Small batches and sequential chains, where one thread per state is bound by
+// its own latency, go to the lane-parallel kernels of poseidon2_coop.cuh
+// (included below; it shares the field code and the constants of this file).
+//
 // C interface (loaded with ctypes; every pointer and the stream are void*):
 //   int zk_poseidon2_init(const uint64_t* ext_rc /*8x12*/,
 //                         const uint64_t* int_rc /*22*/,
 //                         const uint64_t* mu_minus_1 /*12*/);
 //   int zk_poseidon2_permute(const uint64_t* in, uint64_t* out,
 //                            long long n, void* stream);
-// Both return the cudaError_t of the call (0 on success).
+//   int zk_poseidon2_permute_small(const uint64_t* in, uint64_t* out,
+//                                  long long n, void* stream);
+//   int zk_poseidon2_chain_segmented(b0, e0, x0, landing0, b1, e1, x1, landing1,
+//                                    int chains, long long segments,
+//                                    long long stride, void* stream);
+// All return the cudaError_t of the call (0 on success); `chains` other than 1
+// or 2 returns cudaErrorInvalidValue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -135,6 +145,8 @@ poseidon2_permute_kernel(const u64* __restrict__ in, u64* __restrict__ out, long
   for (int i = 0; i < 12; ++i) dst[i] = s[i];
 }
 
+#include "poseidon2_coop.cuh"
+
 extern "C" int zk_poseidon2_init(const u64* ext_rc, const u64* int_rc, const u64* mu_m1) {
   cudaError_t e = cudaMemcpyToSymbol(c_ext_rc, ext_rc, sizeof(u64) * 8 * 12);
   if (e != cudaSuccess) return (int)e;
@@ -148,5 +160,31 @@ extern "C" int zk_poseidon2_permute(const u64* in, u64* out, long long n, void* 
   const int threads = 128;
   long long blocks = (n + threads - 1) / threads;
   poseidon2_permute_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+static unsigned int coop_blocks(long long groups) {
+  long long per_block = COOP_THREADS / COOP_GROUP;
+  return (unsigned int)((groups + per_block - 1) / per_block);
+}
+
+extern "C" int zk_poseidon2_permute_small(const u64* in, u64* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  poseidon2_permute_small_kernel<<<coop_blocks(n), COOP_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zk_poseidon2_chain_segmented(
+    const u64* boundaries0, const u64* encodings0, const unsigned char* execute0, u64* landing0,
+    const u64* boundaries1, const u64* encodings1, const unsigned char* execute1, u64* landing1,
+    int chains, long long segments, long long stride, void* stream) {
+  if (chains != 1 && chains != 2) return (int)cudaErrorInvalidValue;
+  if (segments <= 0 || stride <= 0) return 0;
+  ChainArgs first = {boundaries0, encodings0, execute0, landing0};
+  ChainArgs second = {boundaries1, encodings1, execute1, landing1};
+  dim3 grid(coop_blocks(segments), (unsigned int)chains);
+  poseidon2_chain_segmented_kernel<<<grid, COOP_THREADS, 0, (cudaStream_t)stream>>>(
+      first, second, segments, stride);
   return (int)cudaGetLastError();
 }

@@ -256,10 +256,13 @@ def eval_constraints(w: RamPermutationWitness, config: RamPermutationConfig) -> 
     true = torch.ones((), dtype=torch.bool, device=dev)
 
     # (1) queue sponge chains: one batched Poseidon2 each, or the segmented
-    # recompute when the witness holds boundary states only
+    # recompute when the witness holds boundary states only (both chains in
+    # one call, so that on the card they share one launch)
     if config.chain_stride:
-        chain_u_ok = queues.check_chain_segmented(w.chain_unsorted, w.enc_unsorted, w.execute)
-        chain_s_ok = queues.check_chain_segmented(w.chain_sorted, w.enc_sorted, w.execute)
+        chain_u_ok, chain_s_ok = queues.check_chains_segmented([
+            (w.chain_unsorted, w.enc_unsorted, w.execute),
+            (w.chain_sorted, w.enc_sorted, w.execute),
+        ])
     else:
         chain_u_ok = queues.check_chain(w.chain_unsorted, w.enc_unsorted, w.execute)
         chain_s_ok = queues.check_chain(w.chain_sorted, w.enc_sorted, w.execute)

@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import gf, gf2, merkle, ntt, poseidon2
 from .gf import MODULUS
 from .gf2 import GF2
@@ -50,10 +51,11 @@ class FriProof:
 
 
 class Transcript:
-    """Fiat-Shamir sponge over Poseidon2 with a 4-lane state on `device`."""
+    """Fiat-Shamir sponge over Poseidon2 with a 4-lane state on `device`
+    (None: the card, or an error without one)."""
 
     def __init__(self, device=None):
-        self._state = gf.zeros((4,), device)
+        self._state = gf.zeros((4,), resolve_device(device))
 
     def absorb(self, lanes: torch.Tensor):
         flat = lanes.reshape(-1).to(self._state.device)

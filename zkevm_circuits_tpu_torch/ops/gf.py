@@ -61,11 +61,18 @@ def _uge_p(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # construction and conversion
+#
+# The raw constructors (`from_u64`, `constant`, `zeros`, `ones`, `geometric`)
+# keep torch's own convention: `device=None` is torch's default device, the
+# CPU unless the caller changed it.  The port's rule that `None` means the
+# card belongs to the entry points and the public state constructors, which
+# resolve it through `utils/device.py:resolve_device` before they come here.
 # ---------------------------------------------------------------------------
 
 
 def from_u64(x: Any, device=None) -> torch.Tensor:
-    """python ints / numpy u64 -> canonical int64 tensor (reduced mod p)."""
+    """python ints / numpy u64 -> canonical int64 tensor (reduced mod p);
+    `device` as torch reads it (None: torch's default device)."""
     arr = np.asarray(x, dtype=np.uint64) % np.uint64(MODULUS)
     return torch.from_numpy(np.ascontiguousarray(arr).view(np.int64)).to(device)
 
@@ -81,14 +88,17 @@ def from_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def constant(value: int, device=None) -> torch.Tensor:
+    """a 0-d field element; `device` as torch reads it."""
     return torch.tensor(_i64(int(value) % MODULUS), dtype=torch.int64, device=device)
 
 
 def zeros(shape, device=None) -> torch.Tensor:
+    """`device` as torch reads it (None: torch's default device)."""
     return torch.zeros(shape, dtype=torch.int64, device=device)
 
 
 def ones(shape, device=None) -> torch.Tensor:
+    """`device` as torch reads it (None: torch's default device)."""
     return torch.ones(shape, dtype=torch.int64, device=device)
 
 
@@ -213,7 +223,8 @@ def inv(a: torch.Tensor) -> torch.Tensor:
 
 def geometric(base: int, n: int, device=None) -> torch.Tensor:
     """[base^0 .. base^(n-1)] as an (n,) tensor, n a power of two
-    (log n doubling steps: arr_{k+1} = [arr_k, arr_k * base^(2^k)])."""
+    (log n doubling steps: arr_{k+1} = [arr_k, arr_k * base^(2^k)]);
+    `device` as torch reads it."""
     if n < 1 or n & (n - 1):
         raise ValueError(f"n must be a power of two, got {n}")
     arr = ones((1,), device)

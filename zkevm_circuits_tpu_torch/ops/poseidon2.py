@@ -10,9 +10,10 @@ R_F = 8 (4 + 4), R_P = 22, Grain-LFSR constants from `utils/grain.py`.
     M_I = J + diag(mu - 1).
 
 A batch of states is an int64 tensor of shape (..., 12).  `permutation`
-sends a CUDA tensor to the hand-written kernel (`ops/poseidon2_cuda.py`,
-every batch size) and a CPU tensor to `permutation_plain`, the torch
-version here; there is no third case and no fallback between the two.
+sends a CUDA tensor to the hand-written kernels (`ops/poseidon2_cuda.py`:
+the lane-parallel one for small batches, the thread-per-state one for large)
+and a CPU tensor to `permutation_plain`, the torch version here; there is no
+third case and no fallback between the two.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import hashlib
 
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.grain import poseidon2_goldilocks_constants
 from . import gf
 
@@ -118,7 +120,9 @@ def permutation(state: torch.Tensor) -> torch.Tensor:
 
 
 def empty_state(batch_shape=(), device=None) -> torch.Tensor:
-    return gf.zeros(tuple(batch_shape) + (WIDTH,), device)
+    """The all-zero sponge state; `device=None` is the card, or an error
+    without one."""
+    return gf.zeros(tuple(batch_shape) + (WIDTH,), resolve_device(device))
 
 
 def apply_length_specialization(state: torch.Tensor, length: int) -> torch.Tensor:

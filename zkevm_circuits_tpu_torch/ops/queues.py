@@ -14,18 +14,25 @@ Sponge conventions:
       tail' = s[0:4]
   * The length grows by 1 per executed push or pop.
 
-`simulate_chain` and `check_chain_segmented` step through the chain in a
-Python loop, one batched permutation (one kernel launch on the card) per
-step; bulk tapes go through the native runtime (`runtime/native.py`).
+`simulate_chain` steps through the chain in a Python loop, one batched
+permutation (one kernel launch on the card) per step; bulk tapes go through
+the native runtime (`runtime/native.py`).  The segmented recompute
+(`check_chain_segmented`) of a full-state chain on the card is one launch of
+the fused chain kernel (`ops/poseidon2_cuda.py:chain_segmented_cuda`), the
+two chains of an evaluation sharing it; on the CPU, and for the narrow queue
+on either device, it is the step loop of `segment_landing_states_plain`
+(for a narrow chain on the card each step still launches the permutation
+kernel once per 8-chunk).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..utils.device import resolve_device
 from . import gf, poseidon2
 
 FULL_STATE_WIDTH = 12
@@ -47,6 +54,8 @@ class QueueState:
 
 
 def empty_queue_state(width: int, batch_shape=(), device=None) -> QueueState:
+    """The empty queue; `device=None` is the card, or an error without one."""
+    device = resolve_device(device)
     z = gf.zeros(tuple(batch_shape) + (width,), device)
     return QueueState(z, z, torch.zeros(tuple(batch_shape), dtype=torch.int64, device=device))
 
@@ -120,6 +129,64 @@ def simulate_chain(
     return torch.stack(states)
 
 
+Chain = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+def _segments_and_stride(boundaries: torch.Tensor, encodings: torch.Tensor) -> Tuple[int, int]:
+    n = encodings.shape[0]
+    segments = boundaries.shape[0] - 1
+    if segments <= 0 or n == 0 or n % segments:
+        raise ValueError(f"{segments} segments do not divide {n} rows")
+    return segments, n // segments
+
+
+def segment_landing_states_plain(
+    boundaries: torch.Tensor, encodings: torch.Tensor, execute: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Where every segment of a chain lands, by the step loop: all segments in
+    parallel, `stride` sequential transitions, one batched permutation each.
+    boundaries (S + 1, W), encodings (n, L), execute (n,) bool -> (S, W).
+    The plain version of the fused chain kernel; any width, any device."""
+    segments, stride = _segments_and_stride(boundaries, encodings)
+    if execute is None:
+        execute = _all_executed(encodings.shape[0], encodings.device)
+    # step-major, so that each step reads one contiguous (S, L) block
+    enc_steps = encodings.reshape((segments, stride) + tuple(encodings.shape[1:]))
+    enc_steps = enc_steps.transpose(0, 1).contiguous()
+    ex_steps = execute.reshape(segments, stride).t().contiguous()
+    state = boundaries[:-1]
+    for step in range(stride):
+        state = transition(state, enc_steps[step], ex_steps[step])
+    return state
+
+
+def _fused(boundaries: torch.Tensor, encodings: torch.Tensor) -> bool:
+    """whether the fused chain kernel takes this chain: a full-state queue
+    with one-chunk encodings, on the card."""
+    return (
+        boundaries.device.type == "cuda"
+        and boundaries.shape[-1] == FULL_STATE_WIDTH
+        and encodings.dim() == 2
+        and encodings.shape[-1] == poseidon2.RATE
+    )
+
+
+def check_chains_segmented(chains: Sequence[Chain]) -> List[torch.Tensor]:
+    """`check_chain_segmented` of one or two chains (boundaries, encodings,
+    execute): (S,) bool each.  Full-state chains on the card (contiguous, two
+    of one shape) go to the fused chain kernel in one launch, so that both fill
+    the card together; anything else takes the step loop, chain by chain."""
+    from .poseidon2_cuda import chain_segmented_cuda
+
+    if all(_fused(boundaries, encodings) for boundaries, encodings, _ in chains):
+        landing = chain_segmented_cuda([
+            (b, e, _all_executed(e.shape[0], e.device) if x is None else x)
+            for b, e, x in chains])
+    else:
+        landing = [segment_landing_states_plain(*chain) for chain in chains]
+    return [gf.equal(state, chain[0][1:]).all(-1) for state, chain in zip(landing, chains)]
+
+
 def check_chain_segmented(
     boundaries: torch.Tensor, encodings: torch.Tensor, execute: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -128,22 +195,10 @@ def check_chain_segmented(
     boundaries (S + 1, W): the chain state every `stride` = n / S rows;
     encodings (n, L).  Every segment is recomputed from its start state, all
     segments in parallel, `stride` sequential steps, and the landing states
-    are compared.  Returns (S,) bool."""
-    n = encodings.shape[0]
-    segments = boundaries.shape[0] - 1
-    if segments <= 0 or n % segments:
-        raise ValueError(f"{segments} segments do not divide {n} rows")
-    stride = n // segments
-    if execute is None:
-        execute = _all_executed(n, encodings.device)
-    # step-major, so that each step reads one contiguous (S, L) block
-    enc_steps = encodings.reshape((segments, stride) + tuple(encodings.shape[1:]))
-    enc_steps = enc_steps.transpose(0, 1).contiguous()
-    ex_steps = execute.reshape(segments, stride).t().contiguous()
-    state = boundaries[:-1]
-    for step in range(stride):
-        state = transition(state, enc_steps[step], ex_steps[step])
-    return gf.equal(state, boundaries[1:]).all(-1)
+    are compared.  Returns (S,) bool.  A change to a rate lane of a boundary
+    fails the segment that lands on it only: the next segment's first absorb
+    replaces those lanes."""
+    return check_chains_segmented([(boundaries, encodings, execute)])[0]
 
 
 def check_chain(
