@@ -42,7 +42,25 @@ Phases, each printed on its own line:
   9. main_vm, full width: the benchmark loop through the native EraVM for 2^16
      cycles and `vm.eval_constraints` on the card, all-true; host sim seconds,
      first and steady eval seconds, cycles/s, kernel launches per evaluation
-     (above 0), peak device memory; one changed register limb must fail.
+     (above 0), peak device memory; one changed register limb must fail;
+ 10. sorter full, small: at 2^4 rows in two instances the fully proof-backed
+     sorter argument (grand product and both sponge-chain STARKs), the
+     instances' compact-commitment STARKs and a logUp proof over a 2^8-row
+     range table, made on the card, equal those made on the CPU as nested ints;
+ 11. sorter full, full width: the ram_permutation witness from
+     build_tapes_np(2^16) with per-row chains in 16 instances of 2^12 rows;
+     prove_sorter_full (first and steady prove+verify seconds, peak device
+     memory), the 16 compact-commitment STARKs (make_carried_proofs, the
+     sorter argument riding on the first) and the recursion leaf check of
+     circuit type 8 against the queued commitments, all true; each kernel's
+     launches over the path (the thread-per-state and the small-batch kernel
+     above 0); negative probes: a changed tail fails verify_sorter_full, a
+     changed enc_sorted limb fails the chain verifier, one changed carried
+     proof fails its own leaf slot and no other;
+ 12. logUp, full width: a proof that 2^16 queries drawn by seed lie in the
+     16-bit range table 0..2^16-1 (fixed columns on the card), first and
+     steady prove+verify seconds and launches; the same proof checked against
+     a changed table is rejected.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -65,6 +83,13 @@ LOG2_RAM_EVAL_ROWS = 20
 LOG2_VM_CYCLES = 16
 CHAIN_STRIDE = 512
 EVAL_REPS = 3
+LOG2_SORTER_ROWS = 16
+LOG2_SORTER_LIMIT = 12
+LOG2_SORTER_REF_ROWS = 4
+LOG2_LOGUP_ROWS = 16
+LOG2_LOGUP_REF_ROWS = 8
+RAM_CIRCUIT_TYPE = 8  # ram_permutation in the block driver's numbering
+PROBE_SLOT = 5
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
 # Goldilocks products: 8 full rounds x 12 lanes x 4 (x^7) + 22 partial rounds
@@ -632,6 +657,215 @@ def vm_eval_full(dev, card):
     return launches
 
 
+def _sorter_full_ints(full):
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+
+    return dict(gp=proof_to_ints(full.gp_proof), gp_public=gf.to_u64(full.gp_public).tolist(),
+                chain_u=proof_to_ints(full.chain_u[0]), chain_s=proof_to_ints(full.chain_s[0]),
+                tails=[full.tail_u.tolist(), full.tail_s.tolist()], n_real=full.n_real)
+
+
+def _range_lookup(log_rows, seed):
+    """the 16-bit range check's table 0..2^log_rows - 1 and 2^log_rows queries
+    drawn from it"""
+    table = np.arange(1 << log_rows, dtype=np.uint64)[None]
+    picks = np.random.default_rng(seed).integers(0, 1 << log_rows, size=1 << log_rows)
+    return table, table[:, picks]
+
+
+def sorter_full_small(dev):
+    """The sorter full proof, the carried compact-commitment proofs and a
+    logUp proof made on the card equal those made on the CPU (the CPU side is
+    held to the JAX package by tests/test_torch_sorter_full_slow.py)."""
+    from zkevm_circuits_tpu_torch.models import ram_permutation as ram
+    from zkevm_circuits_tpu_torch.prover import logup, pipeline
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+    from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+
+    n = 1 << LOG2_SORTER_REF_ROWS
+    tapes = build_tapes_np(n)
+    cfg = ram.RamPermutationConfig(limit=n // 2)
+    table, queries = _range_lookup(LOG2_LOGUP_REF_ROWS, 8)
+    sides = []
+    for d in (None, torch.device("cpu")):  # None: the entry points pick the card
+        w = ram.generate_witness_host_tapes(*tapes, cfg, device=d)
+        ok, full = pipeline.prove_sorter_full(w)
+        if not ok:
+            _fail(f"2^{LOG2_SORTER_REF_ROWS}-row sorter full proof on {w.execute.device} "
+                  f"did not verify")
+        carried = rp.make_carried_proofs(ram.instance_compact_forms(w, cfg))
+        lproof, lparams = logup.prove_lookup(table, queries, device=d)
+        if not logup.verify_lookup(lproof, table, lparams):
+            _fail(f"2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on {w.execute.device} did not verify")
+        if full.gp_proof.q_cap.device.type != w.execute.device.type or \
+                lproof.q_cap.device.type != w.execute.device.type:
+            _fail(f"proofs made with device={d} lie elsewhere")
+        sides.append(dict(sorter=_sorter_full_ints(full),
+                          carried=[proof_to_ints(cp.proof) for cp in carried],
+                          finals=[cp.final_state.tolist() for cp in carried],
+                          logup=proof_to_ints(lproof)))
+    for key in sides[0]:
+        if sides[0][key] != sides[1][key]:
+            _fail(f"sorter full small: {key} made on the card differs from the CPU's")
+    print(f"sorter full small: 2^{LOG2_SORTER_REF_ROWS} rows in 2 instances: the sorter full "
+          f"proof (grand product + 2 chain STARKs), {len(sides[0]['carried'])} compact-commitment "
+          f"proofs and the 2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on the card == on the CPU",
+          flush=True)
+
+
+def _leaf(forms, carried):
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+
+    k = len(carried)
+    dev = forms.start_flag.device
+    types = torch.full((k,), RAM_CIRCUIT_TYPE, dtype=torch.int64, device=dev)
+    res = rp.leaf_layer_verify_starks(RAM_CIRCUIT_TYPE, types, forms.commitment(),
+                                      torch.ones(k, dtype=torch.bool, device=dev), carried)
+    return {name: v.cpu().numpy() for name, v in res.items()}
+
+
+def sorter_full_path(dev, card):
+    """The fully proof-backed sorter argument at full width, its carried
+    proofs and the recursion leaf check; returns what the probes need and
+    each kernel's launches over the path."""
+    from zkevm_circuits_tpu_torch.models import ram_permutation as ram
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.prover import pipeline
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+    from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+
+    n = 1 << LOG2_SORTER_ROWS
+    tapes = build_tapes_np(n)
+    cfg = ram.RamPermutationConfig(limit=1 << LOG2_SORTER_LIMIT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = ram.generate_witness_host_tapes(*tapes, cfg)
+    torch.cuda.synchronize()
+    witness_s = time.perf_counter() - t0
+    if w.chain_sorted.shape != (n + 1, 12) or w.chain_sorted.device.type != dev.type:
+        _fail(f"sorter witness: chain_sorted {tuple(w.chain_sorted.shape)} on "
+              f"{w.chain_sorted.device}, not a state a row on the card")
+
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    ok, full = pipeline.prove_sorter_full(w)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prove_launches = KERNEL.counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        _fail(f"sorter full proof at 2^{LOG2_SORTER_ROWS} rows did not verify")
+    if full.n_real != n or not np.array_equal(full.tail_s, gf.to_u64(w.chain_sorted[n])) \
+            or not np.array_equal(gf.to_u64(full.gp_public), gf.to_u64(w.lhs[-1])):
+        _fail("sorter full proof: tails or final products are not the witness's")
+
+    forms = ram.instance_compact_forms(w, cfg)
+    k = int(forms.start_flag.shape[0])
+    if k != n >> LOG2_SORTER_LIMIT:
+        _fail(f"{k} instances, not {n >> LOG2_SORTER_LIMIT}")
+    t0 = time.perf_counter()
+    carried = rp.make_carried_proofs(forms, relation=(w, full))
+    torch.cuda.synchronize()
+    carried_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = _leaf(forms, carried)
+    leaf_s = time.perf_counter() - t0
+    launches = KERNEL.counts()
+    bad = [name for name, v in res.items() if v.shape != (k,) or not v.all()]
+    if bad:
+        _fail(f"leaf check of the {k} carried proofs: {bad} not all true")
+    for name in ("permutation", "permutation_small"):
+        if launches[name] <= 0:
+            _fail(f"the sorter full path launched the {name} kernel no time")
+
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    ok, _ = pipeline.prove_sorter_full(w)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    if not ok or KERNEL.counts() != prove_launches:
+        _fail(f"steady sorter full proof: verdict {ok}, launches {KERNEL.counts()} "
+              f"against {prove_launches} in the first")
+    print(f"sorter full: witness 2^{LOG2_SORTER_ROWS} rows, {k} instances of "
+          f"2^{LOG2_SORTER_LIMIT}, per-row chains {witness_s:.3f} s; prove+verify (grand product "
+          f"+ 2 chain STARKs of {n} rows, 262 + 1 columns, LDE 2^{LOG2_SORTER_ROWS + 2}) first "
+          f"{first_s:.3f} s, steady {steady_s:.3f} s ({n / steady_s:.1f} rows/s); peak device "
+          f"memory {peak / 2**20:.1f} MiB; kernel launches of a prove+verify {prove_launches}; "
+          f"{k} compact-commitment STARKs {carried_s:.3f} s; leaf check of circuit type "
+          f"{RAM_CIRCUIT_TYPE} (every proof verified, the sorter argument again on slot 0) "
+          f"{leaf_s:.3f} s, all true; launches over the path {launches} [{card}]", flush=True)
+    return w, full, forms, carried, launches
+
+
+def sorter_full_probes(w, full, forms, carried):
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.prover import pipeline
+    from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
+
+    p = np.uint64(gf.MODULUS)
+    bad = dataclasses.replace(full, tail_u=(full.tail_u + np.uint64(1)) % p)
+    if pipeline.verify_sorter_full(w, bad):
+        _fail("verify_sorter_full accepted a changed unsorted tail")
+    n_real = full.n_real
+    enc = gf.to_u64(w.enc_sorted)[:n_real].copy()
+    enc[n_real // 3, 3] ^= np.uint64(1)
+    proof, params = full.chain_s
+    if pa.verify_queue_chain(proof, enc, np.zeros(4, np.uint64), full.tail_s, pa.FULL, params):
+        _fail("the chain verifier accepted a changed limb of enc_sorted")
+    cp = carried[PROBE_SLOT]
+    tz = np.array(cp.proof.ood["trace_z"], copy=True)
+    tz[0] ^= np.uint64(1)
+    forged = list(carried)
+    forged[PROBE_SLOT] = dataclasses.replace(
+        cp, proof=dataclasses.replace(cp.proof, ood=dict(cp.proof.ood, trace_z=tz)))
+    res = _leaf(forms, forged)
+    failing = np.flatnonzero(~res["proof_inputs"]).tolist()
+    if failing != [PROBE_SLOT] or not res["type_match"].all() or not res["proof_vk"].all():
+        _fail(f"leaf probe: expected slot {PROBE_SLOT} alone to fail, got {failing}")
+    print(f"sorter full negative probes: a changed tail fails verify_sorter_full; a changed "
+          f"limb of enc_sorted at row {n_real // 3} fails the chain verifier; a changed OOD "
+          f"value of carried proof {PROBE_SLOT} fails its leaf slot and none of the other "
+          f"{len(carried) - 1}", flush=True)
+
+
+def logup_path(dev, card):
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.prover import logup
+
+    table, queries = _range_lookup(LOG2_LOGUP_ROWS, 16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for run in ("first", "steady"):
+        KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        proof, params = logup.prove_lookup(table, queries)
+        ok = logup.verify_lookup(proof, table, params)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if not ok:
+            _fail(f"{run} logUp proof over the 2^{LOG2_LOGUP_ROWS}-row range table did not verify")
+        if run == "first":
+            launches = KERNEL.counts()
+    if proof.caps[0].device.type != dev.type or len(proof.caps) != 3:
+        _fail("the logUp proof's fixed, phase-1 and phase-2 trees are not on the card")
+    other = table.copy()
+    other[0, table.shape[1] // 3] ^= np.uint64(1)
+    if logup.verify_lookup(proof, other, params):
+        _fail("the logUp proof verified against a changed table")
+    print(f"logup: 2^{LOG2_LOGUP_ROWS} queries in the 2^{LOG2_LOGUP_ROWS}-row range table, "
+          f"prove+verify first {seconds[0]:.3f} s, steady {seconds[1]:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; kernel launches {launches}; a "
+          f"changed table rejected [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
@@ -663,13 +897,21 @@ def main():
     torch.cuda.empty_cache()
     vm_eval_small(dev)
     launches_vm_eval = vm_eval_full(dev, card)
+    sorter_full_small(dev)
+    w, full, forms, carried, launches_sorter_full = sorter_full_path(dev, card)
+    sorter_full_probes(w, full, forms, carried)
+    del w, full, forms, carried
+    torch.cuda.empty_cache()
+    launches_logup = logup_path(dev, card)
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
     kernels = []
     for key, record in records.items():
         by_path = dict(launches_prove=launches_prove[key], launches_ram_eval=launches_ram_eval[key],
-                       launches_vm_eval=launches_vm_eval[key])
+                       launches_vm_eval=launches_vm_eval[key],
+                       launches_sorter_full=launches_sorter_full[key],
+                       launches_logup=launches_logup[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

@@ -1,11 +1,13 @@
-"""Where the time goes in the torch port's two constraint evaluations and in
-its prove+verify, on one CUDA card.
+"""Where the time goes in the torch port's two constraint evaluations, its
+prove+verify and its fully proof-backed sorter argument, on one CUDA card.
 
     python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles] [log2_prove_rows]
+                                          [log2_sorter_full_rows]
 
-For ram_permutation.eval_constraints (default 2^20 rows, chain stride 512),
-vm.eval_constraints (default 2^16 cycles) and prove_sorter_argument (default
-2^16 rows) it prints: the steady wall time of
+A size of 0 skips that part.  For ram_permutation.eval_constraints (default
+2^20 rows, chain stride 512), vm.eval_constraints (default 2^16 cycles),
+prove_sorter_argument (default 2^16 rows) and prove_sorter_full (default
+2^16 rows in instances of 2^12, per-row chains) it prints: the steady wall time of
 one evaluation without the profiler (host clock around a synchronize), then
 from a torch.profiler window over one evaluation the window's wall time, the
 number of device kernels, the device's busy time and share, the launches and
@@ -14,7 +16,10 @@ small-batch, fused chain) and of all of them, the device time of everything
 else, and the ten kernels with the most device time.  For the ram evaluation
 it also times the two chain recomputes alone (one call, as the evaluation
 makes it), and the witness generation with the native host chains' share of
-it.  Every
+it.  For the sorter full argument it also times its parts one by one, as
+prove_sorter_full runs them (the grand-product prove and verify, each
+chain STARK's prove and verify), then the compact-commitment STARKs of the
+instances and the recursion leaf check over them.  Every
 line carries the card's name and power limit.  Needs a CUDA card.
 """
 
@@ -35,6 +40,8 @@ from zkevm_circuits_tpu_torch.isa import opcodes as isa  # noqa: E402
 from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm  # noqa: E402
 from zkevm_circuits_tpu_torch.ops import queues  # noqa: E402
 from zkevm_circuits_tpu_torch.prover import pipeline  # noqa: E402
+from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa  # noqa: E402
+from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp  # noqa: E402
 from zkevm_circuits_tpu_torch.runtime import native  # noqa: E402
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np  # noqa: E402
 
@@ -89,14 +96,86 @@ def profile(name, fn, card):
     return steady
 
 
+def timed(fn):
+    """(result, seconds) of one call ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sorter_full(log_rows, card):
+    n = 1 << log_rows
+    cfg = ram.RamPermutationConfig(limit=min(n, 1 << 12))
+    w, witness_s = timed(lambda: ram.generate_witness_host_tapes(*build_tapes_np(n), cfg))
+    print(f"sorter full witness 2^{log_rows} rows, per-row chains: {witness_s:.3f} s [{card}]",
+          flush=True)
+
+    def prove_and_verify():
+        if not pipeline.prove_sorter_full(w)[0]:
+            raise RuntimeError("the sorter full proof did not verify")
+
+    steady = profile(f"sorter full prove+verify 2^{log_rows} rows", prove_and_verify, card)
+
+    # its parts one by one, as prove_sorter_full runs them
+    (gp, public, gp_params), gp_prove = timed(lambda: pipeline.prove_permutation_argument(w))
+    _, gp_verify = timed(lambda: pipeline.verify_permutation_argument(gp, public, gp_params))
+    enc_u, enc_s, spec = pipeline._chain_absorbed_encodings(w)
+    zeros = np.zeros(4, np.uint64)
+    parts = [("grand product prove", gp_prove), ("grand product verify", gp_verify)]
+    for side, enc, chain in (("unsorted", enc_u, w.chain_unsorted), ("sorted", enc_s, w.chain_sorted)):
+        (proof, publics, params), prove_s = timed(lambda: pa.prove_queue_chain(
+            enc[:n], zeros, spec, None, w.execute.device, chain))
+        tail = publics.cpu().numpy().view(np.uint64)[4:16]
+        _, verify_s = timed(lambda: pa.verify_queue_chain(proof, enc[:n], zeros, tail, spec, params))
+        parts += [(f"chain {side} prove", prove_s), (f"chain {side} verify", verify_s)]
+    total = sum(s for _, s in parts)
+    print("sorter full parts, one by one: " + "; ".join(
+        f"{what} {1000 * s:.1f} ms ({100 * s / total:.1f} %)" for what, s in parts)
+        + f"; sum {1000 * total:.1f} ms against {1000 * steady:.1f} ms steady [{card}]", flush=True)
+
+    forms = ram.instance_compact_forms(w, cfg)
+    k = int(forms.start_flag.shape[0])
+    carried, carried_s = timed(lambda: rp.make_carried_proofs(forms))
+    types = torch.full((k,), 8, dtype=torch.int64, device=w.execute.device)
+    res, leaf_s = timed(lambda: rp.leaf_layer_verify_starks(
+        8, types, forms.commitment(), torch.ones(k, dtype=torch.bool, device=types.device),
+        carried))
+    if not all(bool(v.all()) for v in res.values()):
+        raise RuntimeError("the leaf check failed")
+    print(f"sorter full: {k} compact-commitment STARKs {carried_s:.3f} s "
+          f"({1000 * carried_s / k:.1f} ms each), the leaf check over them {leaf_s:.3f} s "
+          f"[{card}]", flush=True)
+    enc0 = forms.encode()[0].cpu().numpy().view(np.uint64)
+
+    def one_commitment():
+        proof, c, final, params = pipeline.prove_compact_commitment(enc0, device=types.device)
+        if not pipeline.verify_compact_commitment(proof, enc0, c, final, params):
+            raise RuntimeError("the compact-commitment proof did not verify")
+
+    profile("one compact-commitment prove+verify", one_commitment, card)
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this profile is taken on the card")
     log_ram = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     log_vm = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     log_prove = int(sys.argv[3]) if len(sys.argv) > 3 else 16
+    log_sorter = int(sys.argv[4]) if len(sys.argv) > 4 else 16
     card = card_line()
+    if log_ram:
+        ram_eval(log_ram, card)
+    if log_vm:
+        vm_eval(log_vm, card)
+    if log_prove:
+        prove(log_prove, card)
+    if log_sorter:
+        sorter_full(log_sorter, card)
 
+
+def ram_eval(log_ram, card):
     n = 1 << log_ram
     cfg = ram.RamPermutationConfig(limit=n, chain_stride=512)
     tapes = build_tapes_np(n)
@@ -120,6 +199,8 @@ def main():
     del w
     torch.cuda.empty_cache()
 
+
+def vm_eval(log_vm, card):
     enc = isa.encode_instruction
     loop = [
         enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xFFFF, src1=0, dst0=1),
@@ -137,6 +218,8 @@ def main():
     del dw
     torch.cuda.empty_cache()
 
+
+def prove(log_prove, card):
     rows = 1 << log_prove
     pw = ram.generate_witness_host_tapes(
         *build_tapes_np(rows), ram.RamPermutationConfig(limit=rows, chain_stride=512))

@@ -37,6 +37,9 @@ def test_port_modules_import_without_jax():
     assert "zkevm_circuits_tpu_torch.prover.pipeline" in mods
     assert "zkevm_circuits_tpu_torch.models.vm.circuit" in mods
     assert "zkevm_circuits_tpu_torch.isa.opcodes" in mods
+    for name in ("prover.poseidon2_air", "prover.recursion_proofs", "prover.logup",
+                 "models.recursion", "ops.keccak"):
+        assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

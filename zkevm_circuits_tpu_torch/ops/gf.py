@@ -246,6 +246,16 @@ def sum_mod(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return cur[0]
 
 
+def cumsum_mod(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """inclusive modular prefix sum along `dim` (log-depth Hillis-Steele scan)."""
+    x = a.movedim(dim, 0)
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], add(x[d:], x[:-d])])
+        d *= 2
+    return x.movedim(0, dim)
+
+
 def dot_mod(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return sum_mod(mul(a, b), dim)
 

@@ -1,0 +1,127 @@
+"""Real STARK proofs at the recursion tree's leaves (the JAX package's
+`prover/recursion_proofs.py`, on torch tensors).
+
+Where the tree touches the base layer (ref
+`src/recursion/leaf_layer/mod.rs:150-198`: pop query -> verify proof ->
+enforce public input == queued commitment):
+
+  * every circuit instance carries a `CarriedProof`: the sponge-chain STARK
+    of `commitment = commit_encoding(compact_form)`
+    (`pipeline.prove_compact_commitment`), optionally with the circuit's
+    relation proof (the sorter full argument, `pipeline.prove_sorter_full`);
+  * `leaf_layer_verify_starks` runs the real verifier per instance and
+    EXTRACTS the public-input commitment from the proven publics, then runs
+    the batched leaf checks of `models/recursion.py` on the verdicts.
+
+The node-level in-field verification (`NodeInFieldProof`) and the
+scheduler's node-slot proof are not ported yet: they need the verifier AIR
+and the scheduler.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models import recursion
+from ..ops import gf
+from . import pipeline
+from . import poseidon2_air as pa
+from .stark import StarkParams, StarkProof
+
+
+@dataclasses.dataclass
+class CarriedProof:
+    """One instance's proof bundle carried into a recursion leaf.
+
+    `encoding` is PUBLIC data (the plaintext compact form the verifier
+    recomputes the absorbed chunks and the message RLC from);
+    `final_state` is the claimed final sponge state whose first 4 lanes are
+    the commitment."""
+
+    proof: StarkProof
+    params: StarkParams
+    encoding: np.ndarray      # (18,) u64 plaintext compact-form encoding
+    final_state: np.ndarray   # (12,) u64
+    # optional circuit-relation proof verified alongside:
+    # (witness, SorterFullProof) for the grand-product families
+    relation: Optional[Tuple[object, object]] = None
+
+
+def commitment_vk(device=None) -> torch.Tensor:
+    """(4,) VK commitment of the compact-form commitment STARK, on `device`
+    (None: the card): the `basic_circuit_vk_commitment` a leaf pins."""
+    # every compact form is 18 elements -> 3 FULL-spec chunks -> log_n = 3
+    return pipeline.stark_vk_commitment(
+        pa.chain_air(pa.FULL), StarkParams(log_n=3, log_blowup=2), device)
+
+
+def make_carried_proofs(compact_forms,
+                        relation: Optional[Tuple[object, object]] = None
+                        ) -> List[CarriedProof]:
+    """Prove every instance's ClosedFormInput commitment for one circuit
+    type, on the forms' device, and bundle the proofs for the leaf layer.
+    `relation` (shared by the type's instances) rides on the FIRST
+    instance: one relation proof per circuit run."""
+    dev = compact_forms.start_flag.device
+    enc = gf.to_u64(compact_forms.encode())
+    if enc.ndim == 1:
+        enc = enc[None]
+    out = []
+    for k in range(enc.shape[0]):
+        proof, _commitment, final_state, params = pipeline.prove_compact_commitment(
+            enc[k], device=dev)
+        out.append(CarriedProof(proof=proof, params=params, encoding=enc[k],
+                                final_state=final_state,
+                                relation=relation if k == 0 else None))
+    return out
+
+
+def verify_carried(cp: CarriedProof) -> Optional[np.ndarray]:
+    """Run the real verifier; on success return the (4,) public-input
+    commitment EXTRACTED from the proven publics (None on failure)."""
+    commitment = np.asarray(cp.final_state[:4], np.uint64)
+    ok = pipeline.verify_compact_commitment(cp.proof, cp.encoding, commitment,
+                                            cp.final_state, cp.params)
+    if ok and cp.relation is not None:
+        witness, full = cp.relation
+        ok = pipeline.verify_sorter_full(witness, full)
+    return commitment if ok else None
+
+
+def carried_to_batch(carried: Sequence[CarriedProof]) -> recursion.ProofBatch:
+    """ProofBatch whose is_valid/public_input come from real verification:
+    a failed proof yields public_input = 0 and is_valid = False, never the
+    claimed values."""
+    dev = carried[0].proof.q_cap.device
+    publics, valid = [], []
+    for cp in carried:
+        extracted = verify_carried(cp)
+        valid.append(extracted is not None)
+        publics.append(np.zeros(4, np.uint64) if extracted is None else extracted)
+    return recursion.ProofBatch(
+        public_input=gf.from_u64(np.stack(publics), dev),
+        is_valid=torch.tensor(valid, device=dev),
+        vk_commitment=commitment_vk(dev).expand(len(carried), -1),
+    )
+
+
+def leaf_layer_verify_starks(
+    circuit_type: int,
+    queue_types: torch.Tensor,
+    queue_commitments: torch.Tensor,
+    execute: torch.Tensor,
+    carried: Sequence[CarriedProof],
+) -> Dict[str, torch.Tensor]:
+    """The leaf layer on real proofs (ref leaf_layer/mod.rs:150-198): verify
+    each queued instance's STARK, extract its public-input commitment, and
+    run the batched leaf checks (type match, public input == queued
+    commitment, VK pin) on the verifier-produced batch."""
+    batch = carried_to_batch(carried)
+    return recursion.leaf_layer_check(
+        circuit_type, queue_types, queue_commitments, execute, batch,
+        basic_vk_commitment=commitment_vk(queue_types.device),
+    )

@@ -1,30 +1,36 @@
-"""Coset-quotient STARK with DEEP-ALI, on torch tensors.
+"""Two-phase coset-quotient STARK with DEEP-ALI, on torch tensors.
 
-The protocol of the JAX package's `prover/stark.py`, for AIRs with phase-1
-columns, transition constraints, affine first/last-row constraints and
-public values (what the grand-product permutation AIR uses):
+The protocol of the JAX package's `prover/stark.py`, for every AIR form:
+fixed (verifier-known) columns, phase-1 columns, phase-2 columns built from
+the challenges, transition and row constraints (or the folded `compose_row`
+and the public-aware `compose_row_pub` / `constraints_pub`), affine
+first/last-row constraints and public values.
 
-  1. LDE every column to the coset D = shift * <W> of size N = n * blowup
-     and Merkle-commit its rows -> cap.
-  2. alpha = FS(cap, public).  The quotient
-       Q = [sum_k a^k C_k] / Z_trans + [sum_j a^j F_j] / (x - 1)
-           + [sum_j a^j L_j] / (x - w^(n-1))
-     is evaluated pointwise on D (the next row at x is the column rolled by
-     `blowup`) and Merkle-committed -> q_cap.
-  3. OOD: z = FS(...) off H and off D; the prover sends T_i(z), T_i(wz) and
-     Q(z) (barycentric evaluation); the verifier recomputes the composition
-     from the claimed row pair at z and demands it equal Q(z).
-  4. DEEP: lambda = FS(OOD values); the FRI codeword is
+  1. LDE every column group to the coset D = shift * <W> of size
+     N = n * blowup and Merkle-commit its rows: [fixed_cap,] cap_1.
+  2. ch = FS([fixed_cap,] cap_1), drawn BEFORE the public vector is absorbed
+     (publics may depend on the challenges); the phase-2 columns are built
+     from (trace, ch) and committed -> cap_2.
+  3. alpha = FS(..., public, cap_2).  The quotient
+       Q = [sum_k a^k C_k] / Z_trans + [sum_k a^k R_k] / (x^n - 1)
+           + [sum_j a^j F_j] / (x - 1) + [sum_j a^j L_j] / (x - w^(n-1))
+     is evaluated pointwise on D over the rows [fixed | phase1 | phase2]
+     (the next row at x is the LDE rolled by `blowup`) and committed -> q_cap.
+  4. OOD: z = FS(...) off H and off D; the prover sends every column at z
+     and w z and Q(z); the verifier recomputes the composition from the
+     claimed row pair at z and demands it equal Q(z).
+  5. DEEP: lambda = FS(OOD values); the FRI codeword is
        E(x) = [A(x) - A(z) + l^(2m) (Q(x) - Q(z))] / (x - z)
               + l^m [A(x) - A(wz)] / (x - wz),   A = sum_i l^i T_i.
-  5. FRI on E; at each FRI query the verifier opens the trace rows and Q,
-     recomputes E and checks it against FRI's layer-0 pair.
+  6. FRI on E; at each FRI query the verifier opens every tree's row and Q,
+     recomputes E and checks it against FRI's layer-0 pair.  The verifier
+     recomputes the fixed cap from the plaintext fixed columns.
 
 Everything large stays on the device of the trace; the transcript, the
-query positions and the openings pass through python ints and numpy.
-Fixed columns, phase-2 columns and the `compose_row*` / `*_pub` forms of
-an AIR are not ported yet and raise NotImplementedError.  The soundness discussion is
-in the JAX module's docstring.
+query positions and the openings pass through python ints and numpy.  The
+DEEP combination and the OOD evaluation run over bounded blocks of the
+domain (`_BLOCK_ELEMS`), which changes no value.  The soundness discussion
+is in the JAX module's docstring.
 """
 
 from __future__ import annotations
@@ -39,17 +45,29 @@ from ..ops import fri, gf, merkle, ntt
 from ..ops.fri import Transcript
 from ..ops.gf import MODULUS
 
+# elements of one (rows, columns) block of the wide passes over the domain:
+# bounds their temporaries (a field product makes about a dozen of its size)
+_BLOCK_ELEMS = 1 << 22
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AirSpec:
-    """Callables receive row views (batch, num_cols) and `ch`, the
-    (num_challenges,) challenge scalars:
+    """Callables receive row views (batch, total_cols) over the concatenated
+    columns [fixed | phase1 | phase2] and `ch`, the (num_challenges,)
+    challenge tensor; `alpha` and `a_pow` are python ints:
 
-      constraints(cur, nxt, ch)     -> [(batch,) ...]  transitions
-      row_constraints(cur, ch)      -> [...]           every row
-      first_row(row, public, ch)    -> [...]           row 0, affine
-      last_row(row, public, ch)     -> [...]           row n-1, affine
-    """
+      constraints(cur, nxt, ch)                  -> [(batch,) ...] transitions
+      row_constraints(cur, ch)                   -> [...]          every row
+      first_row(row, public, ch)                 -> [...]          row 0, affine
+      last_row(row, public, ch)                  -> [...]          row n-1, affine
+      compose_row(cur, ch, alpha, a_pow)         -> (alpha-weighted row sum, a_pow')
+      compose_row_pub(cur, public, ch, alpha, a_pow), constraints_pub(cur, nxt, public, ch):
+          the same with the public vector, used in place of compose_row /
+          constraints when set.
+
+    `num_fixed_cols` columns are verifier-known data whose cap the verifier
+    recomputes; a list entry may be one constraint or a group with one
+    leading axis."""
 
     num_cols: int
     max_degree: int
@@ -70,13 +88,6 @@ class AirSpec:
         return self.num_fixed_cols + self.num_cols + self.num_phase2_cols
 
 
-def _check_supported(air: AirSpec):
-    if air.num_fixed_cols or air.num_phase2_cols:
-        raise NotImplementedError("fixed and phase-2 columns are not ported yet")
-    if air.compose_row or air.compose_row_pub or air.constraints_pub:
-        raise NotImplementedError("compose_row / *_pub AIR forms are not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class StarkParams:
     log_n: int
@@ -88,9 +99,9 @@ class StarkParams:
 
 @dataclasses.dataclass
 class StarkProof:
-    caps: List[torch.Tensor]   # [phase-1 cap]
+    caps: List[torch.Tensor]   # [fixed cap?, phase-1 cap, phase-2 cap?]
     q_cap: torch.Tensor        # cap of the quotient evaluations on D
-    # {"trace_z": (m,) u64, "trace_wz": (m,) u64, "q_z": int}
+    # {"trace_z": (m,) u64, "trace_wz": (m,) u64, "q_z": int}, m = total_cols
     ood: dict
     fri_proof: fri.FriProof
     # per query: {tag: {"rows": [(m_t,) u64 per tree], "paths": [(d, 4) u64],
@@ -100,6 +111,7 @@ class StarkProof:
 
     @property
     def trace_cap(self) -> torch.Tensor:
+        """the phase-1 cap when the AIR has no fixed columns."""
         return self.caps[0]
 
 
@@ -129,6 +141,11 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
         out[i] = pref[i] * inv % MODULUS
         inv = inv * vals[i] % MODULUS
     return out
+
+
+def _block_rows(num_cols: int) -> int:
+    """rows of one block of a (rows, num_cols) pass: a power of two."""
+    return 1 << max((_BLOCK_ELEMS // max(num_cols, 1)).bit_length() - 1, 0)
 
 
 def _domain_points(log_N: int, shift: int, device) -> torch.Tensor:
@@ -166,7 +183,7 @@ def _alpha_powers(alpha: int, k: int, device) -> torch.Tensor:
 
 def _alpha_sum(vals: List[torch.Tensor], alpha: int, a_pow: int):
     """(sum_k alpha^k * a_pow * vals[k], next a_pow); each entry is one
-    constraint with the batch shape, or a group with one leading axis."""
+    constraint with the batch shape, or a group with leading axes."""
     if not vals:
         return None, a_pow
     rows = []
@@ -184,11 +201,20 @@ def _compose_rows(cur, nxt, public, ch, alpha: int, zt_inv, zn_inv, first_inv, l
                   air: AirSpec) -> torch.Tensor:
     """The quotient at a batch of (cur, nxt) row pairs, given the inverse
     zerofiers at their points; shared by the prover and the verifier."""
-    _check_supported(air)
-    t_acc, a_pow = _alpha_sum(air.constraints(cur, nxt, ch), alpha, 1)
+    if air.constraints_pub is not None:
+        t_vals = air.constraints_pub(cur, nxt, public, ch)
+    else:
+        t_vals = air.constraints(cur, nxt, ch)
+    t_acc, a_pow = _alpha_sum(t_vals, alpha, 1)
     comp = gf.mul(t_acc, zt_inv)
-    if air.row_constraints is not None:
+    r_acc = None
+    if air.compose_row_pub is not None:
+        r_acc, a_pow = air.compose_row_pub(cur, public, ch, alpha, a_pow)
+    elif air.compose_row is not None:
+        r_acc, a_pow = air.compose_row(cur, ch, alpha, a_pow)
+    elif air.row_constraints is not None:
         r_acc, a_pow = _alpha_sum(air.row_constraints(cur, ch), alpha, a_pow)
+    if r_acc is not None:
         comp = gf.add(comp, gf.mul(r_acc, zn_inv))
     if air.first_row is not None:
         f_acc, a_pow = _alpha_sum(air.first_row(cur, public, ch), alpha, a_pow)
@@ -202,11 +228,17 @@ def _compose_rows(cur, nxt, public, ch, alpha: int, zt_inv, zn_inv, first_inv, l
 def _barycentric(vals: torch.Tensor, z: int, log_N: int, shift: int) -> torch.Tensor:
     """Evaluate the degree < N polynomial given by `vals` (..., N) on the
     coset shift * <W_N> at an off-domain point z:
-        P(z) = (z^N - shift^N) / (N shift^N) * sum_i vals_i x_i / (z - x_i)."""
+        P(z) = (z^N - shift^N) / (N shift^N) * sum_i vals_i x_i / (z - x_i).
+    A (m, N) `vals` goes in blocks of rows."""
     N = 1 << log_N
     xs = _domain_points(log_N, shift, vals.device)
     weights = gf.mul(xs, gf.inv(gf.sub(gf.constant(z, vals.device), xs)))
-    s = gf.sum_mod(gf.mul(vals, weights), dim=-1)
+    if vals.dim() == 1:
+        s = gf.dot_mod(vals, weights)
+    else:
+        step = max(_BLOCK_ELEMS // N, 1)
+        s = torch.cat([gf.dot_mod(vals[i:i + step], weights)
+                       for i in range(0, vals.shape[0], step)])
     sN = pow(shift, N, MODULUS)
     factor = (pow(z, N, MODULUS) - sN) * pow(N * sN % MODULUS, MODULUS - 2, MODULUS)
     return gf.mul_const(s, factor % MODULUS)
@@ -246,7 +278,8 @@ def _commit_rows(leaves: torch.Tensor, params: StarkParams) -> dict:
 
 
 def _commit_columns(cols: torch.Tensor, params: StarkParams) -> dict:
-    """LDE + row-Merkle commitment of an (m, n) column group."""
+    """LDE + row-Merkle commitment of an (m, n) column group: a tree dict
+    {cap, leaves, levels, lde} that `prove` takes as its `phase1_tree`."""
     lde_cols = ntt.lde(cols, params.log_blowup, params.coset_shift)
     tree = _commit_rows(lde_cols.T.contiguous(), params)
     tree["lde"] = lde_cols
@@ -257,6 +290,19 @@ def _ch_ints(tr: Transcript, air: AirSpec) -> Tuple[int, ...]:
     return tuple(int(gf.to_u64(tr.challenge_ext().c0)) for _ in range(air.num_challenges))
 
 
+def challenges_from_cap(cap1: torch.Tensor, air: AirSpec,
+                        fixed_cap: Optional[torch.Tensor] = None):
+    """The challenge round: (ch ints, transcript) from FS([fixed_cap,] cap_1),
+    BEFORE the public vector is absorbed, so that public values may depend
+    on the challenges (the message RLC of `poseidon2_air`); alpha, drawn
+    after the publics, still binds them."""
+    tr = Transcript(cap1.device)
+    if fixed_cap is not None:
+        tr.absorb(fixed_cap)
+    tr.absorb(cap1)
+    return _ch_ints(tr, air), tr
+
+
 def _absorb_public(tr: Transcript, public: Optional[torch.Tensor], air: AirSpec):
     if air.num_public:
         if public is None or tuple(public.shape) != (air.num_public,):
@@ -265,9 +311,19 @@ def _absorb_public(tr: Transcript, public: Optional[torch.Tensor], air: AirSpec)
 
 
 def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
-          public: Optional[torch.Tensor] = None) -> StarkProof:
-    """Prove that the (num_cols, n) trace satisfies `air` with `public`."""
-    _check_supported(air)
+          public: Optional[torch.Tensor] = None,
+          build_phase2: Optional[Callable] = None,
+          fixed_cols: Optional[torch.Tensor] = None,
+          phase1_tree: Optional[dict] = None) -> StarkProof:
+    """Prove that the (num_cols, n) trace satisfies `air` with `public`.
+
+    `build_phase2(cols, ch_ints) -> (num_phase2_cols, n)` builds the
+    challenge-derived columns (required iff the AIR has them); `cols` is
+    [fixed | phase1].  `fixed_cols` (num_fixed_cols, n) is the verifier-known
+    data (required iff the AIR has it).  `phase1_tree` is the caller's own
+    `_commit_columns(trace, params)` when it already made it (a public that
+    depends on the challenges needs the phase-1 cap first); the proof is the
+    same either way."""
     n = 1 << params.log_n
     if tuple(trace.shape) != (air.num_cols, n):
         raise ValueError(f"trace must be {(air.num_cols, n)}, got {tuple(trace.shape)}")
@@ -278,73 +334,98 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
     N = n * blowup
     log_N = params.log_n + params.log_blowup
 
-    tree = _commit_columns(trace, params)
-    tr = Transcript(dev)
-    tr.absorb(tree["cap"])
-    ch = _ch_ints(tr, air)
+    trees = []
+    fixed_cap = None
+    all_cols = trace
+    if air.num_fixed_cols:
+        if fixed_cols is None or tuple(fixed_cols.shape) != (air.num_fixed_cols, n):
+            raise ValueError(f"the AIR takes fixed columns of shape {(air.num_fixed_cols, n)}")
+        trees.append(_commit_columns(fixed_cols, params))
+        fixed_cap = trees[0]["cap"]
+        all_cols = torch.cat([fixed_cols, trace])
+    trees.append(phase1_tree if phase1_tree is not None else _commit_columns(trace, params))
+    ch, tr = challenges_from_cap(trees[-1]["cap"], air, fixed_cap)
     _absorb_public(tr, public, air)
-    lde = tree["lde"]  # (m, N)
+    if air.num_phase2_cols:
+        if build_phase2 is None:
+            raise ValueError("the AIR has phase-2 columns: build_phase2 is required")
+        t2 = build_phase2(all_cols, ch)
+        if tuple(t2.shape) != (air.num_phase2_cols, n):
+            raise ValueError(f"build_phase2 gave {tuple(t2.shape)}, "
+                             f"not {(air.num_phase2_cols, n)}")
+        trees.append(_commit_columns(t2, params))
+        tr.absorb(trees[-1]["cap"])
+        all_cols = torch.cat([all_cols, t2])
+    lde = trees[0]["lde"] if len(trees) == 1 else torch.cat([t["lde"] for t in trees])  # (m, N)
 
     alpha = int(gf.to_u64(tr.challenge_ext().c0))
     xs = _domain_points(log_N, params.coset_shift, dev)
     zerofiers = _domain_zerofiers(params, xs)
-    cur = tree["leaves"]  # (N, m)
+    cur = lde.T  # (N, m)
     nxt = torch.roll(lde, -blowup, dims=-1).T
     ch_t = gf.from_u64(np.array(ch, dtype=np.uint64), dev)
     quotient = _compose_rows(cur, nxt, public, ch_t, alpha, *zerofiers, air)
+    del nxt
     q_tree = _commit_rows(quotient.unsqueeze(-1), params)
     tr.absorb(q_tree["cap"])
 
     # OOD round: every column at z and w z, the quotient at z
     z = _ood_point(tr, params.log_n, params.log_blowup, params.coset_shift)
     wz = z * ntt.root_of_unity(params.log_n) % MODULUS
-    trace_z = _barycentric(trace, z, params.log_n, 1)
-    trace_wz = _barycentric(trace, wz, params.log_n, 1)
+    trace_z = _barycentric(all_cols, z, params.log_n, 1)
+    trace_wz = _barycentric(all_cols, wz, params.log_n, 1)
     q_z = _barycentric(quotient, z, log_N, params.coset_shift)
     ood = dict(trace_z=gf.to_u64(trace_z), trace_wz=gf.to_u64(trace_wz),
                q_z=int(gf.to_u64(q_z)))
     tr.absorb(torch.cat([trace_z, trace_wz, q_z.reshape(1)]))
     lam = int(gf.to_u64(tr.challenge_ext().c0))
 
-    # DEEP codeword over the whole LDE domain
-    m = air.num_cols
+    # DEEP codeword over the whole LDE domain, a block of rows at a time
+    m = air.total_cols
     lpows, lam_m, lam_2m = _lambda_weights(lam, m, dev)
-    deep = _deep_combine(
-        cur, quotient, lpows, lam_m, lam_2m,
-        gf.dot_mod(trace_z, lpows), gf.dot_mod(trace_wz, lpows), ood["q_z"],
-        gf.inv(gf.sub(xs, gf.constant(z, dev))), gf.inv(gf.sub(xs, gf.constant(wz, dev))),
-    )
+    a_z, a_wz = gf.dot_mod(trace_z, lpows), gf.dot_mod(trace_wz, lpows)
+    inv_xz = gf.inv(gf.sub(xs, gf.constant(z, dev)))
+    inv_xwz = gf.inv(gf.sub(xs, gf.constant(wz, dev)))
+    step = _block_rows(m)
+    deep = torch.cat([
+        _deep_combine(cur[i:i + step], quotient[i:i + step], lpows, lam_m, lam_2m, a_z, a_wz,
+                      ood["q_z"], inv_xz[i:i + step], inv_xwz[i:i + step])
+        for i in range(0, N, step)])
     fproof = fri.prove(deep, _fri_params(air, params))
 
-    # openings: the queried rows and paths of both trees, pulled once each
+    # openings: the queried rows and paths of every tree, pulled once each
     idx = np.asarray(fproof.query_indices, np.int64)
     flat_idx = np.concatenate([idx, idx + N // 2])  # (2Q,)
     gathered = [(fri.gather_rows(t["leaves"], flat_idx), fri.gather_paths(t["levels"], flat_idx))
-                for t in (tree, q_tree)]
+                for t in trees + [q_tree]]
     Q = len(fproof.query_indices)
     openings = []
     for qi in range(Q):
         entry = {}
         for tag, k in (("cur", qi), ("cur_pair", Q + qi)):
             entry[tag] = dict(
-                rows=[gathered[0][0][k]],
-                paths=[gathered[0][1][k]],
-                q_row=gathered[1][0][k],
-                q_path=gathered[1][1][k],
+                rows=[g[0][k] for g in gathered[:-1]],
+                paths=[g[1][k] for g in gathered[:-1]],
+                q_row=gathered[-1][0][k],
+                q_path=gathered[-1][1][k],
                 index=int(flat_idx[k]),
             )
         openings.append(entry)
-    return StarkProof(caps=[tree["cap"]], q_cap=q_tree["cap"], ood=ood,
+    return StarkProof(caps=[t["cap"] for t in trees], q_cap=q_tree["cap"], ood=ood,
                       fri_proof=fproof, trace_openings=openings)
 
 
 def verify(proof: StarkProof, air: AirSpec, params: StarkParams,
-           public: Optional[torch.Tensor] = None) -> bool:
-    _check_supported(air)
+           public: Optional[torch.Tensor] = None,
+           fixed_cols: Optional[torch.Tensor] = None) -> bool:
     n = 1 << params.log_n
     N = n << params.log_blowup
     Q = params.num_queries
-    if len(proof.caps) != 1 or len(proof.trace_openings) != Q:
+    has_fixed = 1 if air.num_fixed_cols else 0
+    widths = [air.num_fixed_cols] * has_fixed + [air.num_cols] + (
+        [air.num_phase2_cols] if air.num_phase2_cols else [])
+    n_trees = len(widths)
+    if len(proof.caps) != n_trees or len(proof.trace_openings) != Q:
         return False
     if air.num_public and (public is None or tuple(public.shape) != (air.num_public,)):
         return False
@@ -355,10 +436,20 @@ def verify(proof: StarkProof, air: AirSpec, params: StarkParams,
     q_z = int(proof.ood["q_z"]) % MODULUS
     if ood_z.shape != (m,) or ood_wz.shape != (m,):
         return False
-    tr = Transcript(dev)
-    tr.absorb(proof.caps[0])
-    ch = _ch_ints(tr, air)
+    fixed_cap = None
+    if has_fixed:
+        # the fixed cap belongs to the verifying key: recompute it from the
+        # plaintext columns
+        if fixed_cols is None or tuple(fixed_cols.shape) != (air.num_fixed_cols, n):
+            return False
+        want = _commit_columns(fixed_cols.to(dev), params)["cap"]
+        if not torch.equal(want, proof.caps[0]):
+            return False
+        fixed_cap = proof.caps[0]
+    ch, tr = challenges_from_cap(proof.caps[has_fixed], air, fixed_cap)
     _absorb_public(tr, public, air)
+    if air.num_phase2_cols:
+        tr.absorb(proof.caps[-1])
     alpha = int(gf.to_u64(tr.challenge_ext().c0))
     tr.absorb(proof.q_cap)
     z = _ood_point(tr, params.log_n, params.log_blowup, params.coset_shift)
@@ -381,29 +472,36 @@ def verify(proof: StarkProof, air: AirSpec, params: StarkParams,
         return False
 
     # openings must sit at the FRI query positions with the right shapes
-    rows, paths, q_rows, q_paths, flat_idx = [], [], [], [], []
+    rows = [[] for _ in range(n_trees)]
+    paths = [[] for _ in range(n_trees)]
+    q_rows, q_paths, flat_idx = [], [], []
     for q in range(Q):
         idx = proof.fri_proof.query_indices[q]
         for tag, j in (("cur", idx), ("cur_pair", idx + N // 2)):
             op = proof.trace_openings[q][tag]
-            if int(op["index"]) != j or len(op["rows"]) != 1:
+            if int(op["index"]) != j or len(op["rows"]) != n_trees or len(op["paths"]) != n_trees:
                 return False
-            row = np.asarray(op["rows"][0], np.uint64)
             q_row = np.asarray(op["q_row"], np.uint64)
-            if row.shape != (air.num_cols,) or q_row.shape != (1,):
+            if q_row.shape != (1,):
                 return False
-            rows.append(row)
-            paths.append(np.asarray(op["paths"][0], np.uint64))
+            for t in range(n_trees):
+                row = np.asarray(op["rows"][t], np.uint64)
+                if row.shape != (widths[t],):
+                    return False
+                rows[t].append(row)
+                paths[t].append(np.asarray(op["paths"][t], np.uint64))
             q_rows.append(q_row)
             q_paths.append(np.asarray(op["q_path"], np.uint64))
             flat_idx.append(j)
 
     idx_t = torch.as_tensor(np.array(flat_idx, np.int64), device=dev)
-    rows_t = gf.from_u64(np.stack(rows), dev)       # (2Q, m)
-    q_rows_t = gf.from_u64(np.stack(q_rows), dev)   # (2Q, 1)
-    ok = fri._merkle_check(rows_t, idx_t, gf.from_u64(np.stack(paths), dev), proof.caps[0])
-    ok &= fri._merkle_check(q_rows_t, idx_t, gf.from_u64(np.stack(q_paths), dev), proof.q_cap)
-    if not bool(ok):
+    rows_t = [gf.from_u64(np.stack(r), dev) for r in rows]  # (2Q, m_t) each
+    q_rows_t = gf.from_u64(np.stack(q_rows), dev)           # (2Q, 1)
+    oks = [fri._merkle_check(rows_t[t], idx_t, gf.from_u64(np.stack(paths[t]), dev),
+                             proof.caps[t]) for t in range(n_trees)]
+    oks.append(fri._merkle_check(q_rows_t, idx_t, gf.from_u64(np.stack(q_paths), dev),
+                                 proof.q_cap))
+    if not bool(torch.stack(oks).all()):
         return False
 
     # the DEEP combination at the opened points must equal FRI's layer 0
@@ -411,7 +509,7 @@ def verify(proof: StarkProof, air: AirSpec, params: StarkParams,
     xs = [params.coset_shift * pow(w_big, j, MODULUS) % MODULUS for j in flat_idx]
     lpows, lam_m, lam_2m = _lambda_weights(lam, m, dev)
     ev = _deep_combine(
-        rows_t, q_rows_t[:, 0], lpows, lam_m, lam_2m,
+        torch.cat(rows_t, dim=1), q_rows_t[:, 0], lpows, lam_m, lam_2m,
         gf.dot_mod(gf.from_u64(ood_z, dev), lpows), gf.dot_mod(gf.from_u64(ood_wz, dev), lpows),
         q_z,
         gf.from_u64(_batch_inv([(x - z) % MODULUS for x in xs]), dev),

@@ -6,9 +6,12 @@ and a proof as nested python ints.
 numpy arrays (field elements as u64) so that a witness made elsewhere (for
 instance by the JAX package) can be fed to the port's prover;
 `vm_witness_from_numpy` does the same for a main_vm witness dict;
-`proof_to_ints` turns a `StarkProof` into nested lists of ints, and
-`residuals_to_numpy` a residual dict into numpy arrays, so that both compare
-with `==`.
+`proof_to_ints` turns a `StarkProof` (any number of column trees) into
+nested lists of ints and `proof_from_ints` turns such nested ints back into
+a `StarkProof` on a device, so that a proof made elsewhere (the JAX
+package's, as the tests write it out) goes to the port's verifiers;
+`residuals_to_numpy` turns a residual dict into numpy arrays, so that both
+compare with `==`.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from ..base_structures.memory_query import MemoryQueries
 from ..models.ram_permutation import RamPermutationWitness
 from ..models.vm.circuit import prepare_device_witness as vm_witness_from_numpy  # noqa: F401
-from ..ops import gf
+from ..ops import fri, gf
 from ..ops.gf import from_u64, to_u64  # noqa: F401  u64 numpy <-> field tensors
 from ..prover.stark import StarkProof
 from .device import resolve_device
@@ -97,4 +100,48 @@ def proof_to_ints(proof: StarkProof) -> dict:
             }
             for entry in proof.trace_openings
         ],
+    )
+
+
+def proof_from_ints(d: dict, device=None) -> StarkProof:
+    """The inverse of `proof_to_ints`: caps become field tensors on `device`
+    (None: the card), everything else numpy u64 and python ints, as `prove`
+    makes them."""
+    device = resolve_device(device)
+
+    def u64(a, shape_tail=None):
+        arr = np.asarray(a, np.uint64)
+        return arr.reshape((-1,) + shape_tail) if shape_tail else arr
+
+    def cap(c):
+        return gf.from_u64(u64(c, (4,)), device)
+
+    f = d["fri"]
+    fri_proof = fri.FriProof(
+        caps=[cap(c) for c in f["caps"]],
+        final_poly=u64(f["final_poly"]),
+        query_indices=[int(i) for i in f["query_indices"]],
+        openings=[[dict(pair=u64(op["pair"]), path=u64(op["path"], (4,))) for op in per_query]
+                  for per_query in f["openings"]],
+    )
+    openings = [
+        {
+            tag: dict(
+                rows=[u64(r) for r in op["rows"]],
+                paths=[u64(p, (4,)) for p in op["paths"]],
+                q_row=u64(op["q_row"]),
+                q_path=u64(op["q_path"], (4,)),
+                index=int(op["index"]),
+            )
+            for tag, op in entry.items()
+        }
+        for entry in d["trace_openings"]
+    ]
+    return StarkProof(
+        caps=[cap(c) for c in d["caps"]],
+        q_cap=cap(d["q_cap"]),
+        ood=dict(trace_z=u64(d["ood"]["trace_z"]), trace_wz=u64(d["ood"]["trace_wz"]),
+                 q_z=int(d["ood"]["q_z"])),
+        fri_proof=fri_proof,
+        trace_openings=openings,
     )
