@@ -60,7 +60,29 @@ Phases, each printed on its own line:
  12. logUp, full width: a proof that 2^16 queries drawn by seed lie in the
      16-bit range table 0..2^16-1 (fixed columns on the card), first and
      steady prove+verify seconds and launches; the same proof checked against
-     a changed table is rejected.
+     a changed table is rejected;
+ 13. log path, small: a log-heavy program (`log_program`: a bootloader loop of
+     far calls into four callees that write and read storage, emit events and
+     L1 messages and revert every 8th call) for 1,024 cycles, then the block's
+     log and decommit queues as the JAX package's block runtime wires them
+     (`log_path`): main_vm and its instance compact forms, the decommit
+     sorter, demux, the storage, events and L1 sorters and the linear hasher,
+     in instances of 16, on the card and on the CPU: every residual and
+     compact form equal, all true, every handoff true, the L1 digest equal to
+     the host keccak; the port's entry() on the card against the CPU;
+ 14. log path, full width: the same program for 2^16 cycles through the
+     native EraVM, every circuit in instances of 2^12 (demux and the hasher
+     one instance), all residuals and handoffs true, the digest equal to the
+     host keccak; witness, evaluation and compact-form seconds (first and
+     steady) per circuit, the counts the program reaches, the Poseidon2
+     launches of the path; five negative probes (a storage written_value
+     limb, a demux out-flag, two swapped sorted events, a keccak state lane, a
+     VM instance's FSM boundary), each failing exactly the residuals and rows
+     the JAX package fails (tests/test_torch_log_*.py);
+ 15. log sorter, full width: seeded event tapes of 2^18 rows (one event in
+     eight rolled back) through `generate_witness_host_tapes` in 4 instances
+     of 2^16, witness seconds with the host chains' share, first and steady
+     evaluation seconds, rows/s, compact forms, all true.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -88,7 +110,16 @@ LOG2_SORTER_LIMIT = 12
 LOG2_SORTER_REF_ROWS = 4
 LOG2_LOGUP_ROWS = 16
 LOG2_LOGUP_REF_ROWS = 8
-RAM_CIRCUIT_TYPE = 8  # ram_permutation in the block driver's numbering
+RAM_CIRCUIT_TYPE = 8  # ram_permutation in the block runtime's numbering
+LOG2_LOG_PATH_CYCLES = 16
+LOG_PATH_ITERATIONS = 1450  # about 44 cycles each: the bootloader returns before 2^16
+LOG2_LOG_LIMIT = 12
+LOG_PATH_SMALL_ITERATIONS = 18  # iteration 16 sends an L1 message, iteration 8 reverts
+LOG_PATH_SMALL_CYCLES = 1024
+LOG_PATH_SMALL_LIMIT = 16
+LOG_CALLEE_BASE = 0x9000  # the four callees' kernel-space addresses
+LOG2_LOG_SORTER_ROWS = 18
+LOG2_LOG_SORTER_LIMIT = 16
 PROBE_SLOT = 5
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
@@ -866,6 +897,594 @@ def logup_path(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the block's log and decommit queues (runtime/block2.py:214-470 of the JAX
+# package): a log-heavy EraVM run, then main_vm, its instances, the decommit
+# sorter, demux, the storage, events and L1 sorters and the linear hasher
+# ---------------------------------------------------------------------------
+
+
+def log_program(iterations):
+    """A bootloader loop of `iterations` far calls, each to one of four
+    kernel-space callees (from the code store, one decommit request a call):
+    the bootloader keeps its loop counter in storage key 0 and hands it to the
+    callee in r3 (a system call keeps r3..r11); the callee writes two storage
+    cells over 2^10 keys of its own address (2^12 cells over the four, so
+    writes repeat), reads one of them and the cell it wrote four iterations
+    before, emits four events, an L1 message on every 16th iteration, and
+    reverts on every 8th call ((i + (i >> 4)) & 7 == 0, so that 1 in 8 of the
+    L1 messages is rolled back too).  About 44 cycles an iteration.  Returns (code words, EraVM keyword arguments)."""
+    from zkevm_circuits_tpu_torch.isa import opcodes as isa
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+    from zkevm_circuits_tpu_torch.models import vm
+
+    enc = isa.encode_instruction
+    set_flags = 1 << isa.SET_FLAGS_FLAG_IDX
+    swap = 1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES
+    first = 1 << isa.FIRST_MESSAGE_FLAG_IDX
+
+    def imm(v, dst):
+        return enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=v, src1=0, dst0=dst)
+
+    def addi(v, src, dst):
+        return enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=v, src1=src, dst0=dst)
+
+    def andi(v, src, dst, flags=0):
+        return enc(isa.BINOP, isa.BINOP_AND, src_mode=isa.SRC_IMM, imm0=v, src1=src, dst0=dst,
+                   flags=flags)
+
+    def log(variant, src0, src1=0, dst0=0, flags=0):
+        return enc(isa.LOG, variant, src0=src0, src1=src1, dst0=dst0, flags=flags)
+
+    def words(prog):
+        out = vm.assemble_code_words(prog)
+        return out + [0] if len(out) % 2 == 0 else out  # Era bytecode: odd length
+
+    def callee(c):
+        prog = [
+            imm(c, 11),
+            imm(4, 10), enc(isa.SHIFT, isa.SHIFT_SHR, src0=3, src1=10, dst0=5),
+            enc(isa.ADD, src0=5, src1=3, dst0=5), andi(7, 5, 5, set_flags),  # eq: reverts
+            enc(isa.ADD, src0=3, src1=3, dst0=8), enc(isa.ADD, src0=8, src1=3, dst0=8),
+            enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=12, src1=8, dst0=8, flags=swap),
+            andi(0x3FF, 8, 8),                       # key 3(i - 4): this callee's last call
+        ]
+        fresh = len(prog) + 6
+        prog += [
+            enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=fresh, condition=isa.COND_EQ),
+            addi(12, 8, 4), andi(0x3FF, 4, 4),      # keys 3i, 3i + 1 (mod 2^10)
+            addi(1, 4, 6), andi(0x3FF, 6, 6),
+        ]
+        body = fresh + 2
+        prog += [enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=body)]
+        # a call that reverts writes cells nothing touches again (the EraVM
+        # oracle does not undo a reverted write: ROADMAP Queue 3)
+        prog += [addi(0x4000, 3, 4), addi(0x6000, 3, 6)]
+        prog += [
+            log(isa.LOG_STORAGE_WRITE, 4, 3),
+            log(isa.LOG_STORAGE_WRITE, 6, 3),
+            log(isa.LOG_STORAGE_READ, 6, dst0=7),
+            log(isa.LOG_STORAGE_READ, 8, dst0=7),
+            log(isa.LOG_EVENT, 4, 3, flags=first),
+            log(isa.LOG_EVENT, 6, 7),
+            log(isa.LOG_EVENT, 8, 11),
+            log(isa.LOG_EVENT, 11, 3),
+        ]
+        skip = len(prog) + 3
+        prog += [andi(15, 3, 9, set_flags),
+                 enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=skip, condition=isa.COND_NE),
+                 log(isa.LOG_TO_L1_MESSAGE, 4, 3)]
+        revert = len(prog) + 3
+        prog += [andi(7, 5, 5, set_flags),
+                 enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=revert, condition=isa.COND_EQ),
+                 enc(isa.RET, isa.RET_OK),
+                 enc(isa.RET, isa.RET_REVERT)]
+        return words(prog)
+
+    prog = [
+        log(isa.LOG_STORAGE_READ, 0, dst0=3),                    # the loop counter
+        addi(1, 3, 3),
+        log(isa.LOG_STORAGE_WRITE, 0, 3),
+        andi(3, 3, 4), addi(LOG_CALLEE_BASE, 4, 4),              # one of four callees
+        imm(1, 1), imm(248, 5), enc(isa.SHIFT, isa.SHIFT_SHL, src0=1, src1=5, dst0=1),
+        imm(1, 6), imm(208, 5), enc(isa.SHIFT, isa.SHIFT_SHL, src0=6, src1=5, dst0=6),
+        enc(isa.BINOP, isa.BINOP_OR, src0=1, src1=6, dst0=1),    # system call, 2^16 ergs
+    ]
+    cont = len(prog) + 1  # both returns, ok and revert, continue here
+    prog += [enc(isa.FAR_CALL, isa.FAR_CALL_NORMAL, src0=1, src1=4, imm0=cont),
+             log(isa.LOG_STORAGE_READ, 0, dst0=3),
+             enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=iterations, src1=3, dst0=5,
+                 flags=set_flags | swap),
+             enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=0, condition=isa.COND_NE),
+             enc(isa.RET, isa.RET_OK)]
+    storage, code_store = {}, {}
+    for c in range(4):
+        code = callee(c)
+        code_hash = (sp.CODE_HASH_VERSION_BYTE << 248) | (len(code) << 224) | (0xC0DE << 8) | c
+        storage[(0, sp.DEPLOYER_SYSTEM_CONTRACT_ADDRESS, LOG_CALLEE_BASE + c)] = code_hash
+        code_store[code_hash] = code
+    return words(prog), dict(storage=storage, code_store=code_store)
+
+
+def block_rows(v):
+    """What the block runtime hands each circuit from one EraVM run
+    (runtime/block2.py:257-470 of the JAX package): the decommit requests
+    (the boot push, then the tape) sorted by (hash, timestamp), the log tape,
+    the storage logs sorted by (address, key, cycle index) with those
+    indices, and the event and L1-message logs sorted by (timestamp,
+    rollback)."""
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+
+    dec = [dict(r) for r in v.initial_dec_rows] + [dict(r) for r in v.decommit_tape]
+    logs = [dict(q) for q in v.log_tape]
+    storages = [r for r in logs if r["aux_byte"] == sp.STORAGE_AUX_BYTE]
+    order = sorted(range(len(storages)),
+                   key=lambda i: (storages[i]["address"], storages[i]["key"], i))
+    rows = dict(dec=dec, dec_sorted=sorted(dec, key=lambda r: (r["code_hash"], r["timestamp"])),
+                logs=logs, storage=storages, storage_sorted=[storages[i] for i in order],
+                storage_ts=order)
+    for name, aux in (("events", sp.EVENT_AUX_BYTE), ("l1_messages", sp.L1_MESSAGE_AUX_BYTE)):
+        rows[name] = [r for r in logs if r["aux_byte"] == aux]
+        rows[name + "_sorted"] = sorted(rows[name], key=lambda r: (r["timestamp"], bool(r["rollback"])))
+    return rows
+
+
+def _next_pow2(n):
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _rows(soa, mask):
+    """rows of a query batch where `mask` holds, as dicts of python ints (the
+    block runtime's `_soa_rows`)."""
+    import dataclasses
+
+    keep = np.flatnonzero(mask.cpu().numpy())
+    cols = {f.name: getattr(soa, f.name).cpu().numpy()[keep] for f in dataclasses.fields(soa)}
+    rows = []
+    for i in range(len(keep)):
+        row = {}
+        for name, col in cols.items():
+            v = col[i]
+            row[name] = (sum(int(x) << (32 * k) for k, x in enumerate(v)) if v.ndim
+                         else bool(v) if col.dtype == np.bool_ else int(v))
+        rows.append(row)
+    return rows
+
+
+def _tails_equal(a, b):
+    from zkevm_circuits_tpu_torch.ops import queues
+
+    return bool(queues.queue_states_equal(a, b))
+
+
+def _stage(times, name, fn):
+    """fn() once, or, with `times`, twice (first and steady seconds, each ended
+    by a synchronize); returns the last result."""
+    if times is None:
+        return fn()
+    seconds = []
+    for _ in range(2):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    times[name] = seconds
+    return out
+
+
+def log_path(v, w, limits, device, times=None):
+    """The block's log and decommit queues after one VM run, as the JAX
+    package's block runtime wires them (runtime/block2.py:214-470): `v` the
+    EraVM after `run()`, `w` its witness dict, `limits` the instance limits
+    (vm, sorter), `device` where the circuits run.  Returns (results: circuit
+    -> (witness, residuals, compact forms), handoffs, the L1 digest, the host
+    keccak of the survivors, counts)."""
+    from zkevm_circuits_tpu_torch.base_structures.decommit_query import DecommitQueries
+    from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
+    from zkevm_circuits_tpu_torch.models import demux_log_queue as dm
+    from zkevm_circuits_tpu_torch.models import linear_hasher as lh
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+    from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
+    from zkevm_circuits_tpu_torch.models import storage_validity as sv
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops import gf, keccak
+    from zkevm_circuits_tpu_torch.ops.queues import QueueState
+
+    vm_limit, sorter_limit = limits
+    out, handoffs = {}, {}
+    cycles = len(w["ts"]) - 1
+    dw = vm.prepare_device_witness(w, device=device)
+    res = _stage(times, "main_vm eval", lambda: vm.eval_constraints(dw, cycles))
+    forms, proto = _stage(times, "main_vm compact",
+                          lambda: vm.vm_instance_compact_forms(dw, vm_limit))
+    out["main_vm"] = (dw, dict(res, **{"protocol_" + k: x for k, x in proto.items()}), forms)
+    zeros4 = gf.zeros((4,), dw["ts"].device)
+
+    def circuit(name, gen, evaluate, compact):
+        wit = _stage(times, f"{name} witness", gen)
+        res = _stage(times, f"{name} eval", lambda: evaluate(wit))
+        out[name] = (wit, res, _stage(times, f"{name} compact", lambda: compact(wit)))
+        return wit
+
+    rows = block_rows(v)
+    ccfg = sd.DecommitSorterConfig(limit=sorter_limit)
+    cw = circuit("sort_decommittments",
+                 lambda: sd.generate_witness(DecommitQueries.from_lists(rows["dec"], device),
+                                             DecommitQueries.from_lists(rows["dec_sorted"], device),
+                                             ccfg),
+                 lambda x: sd.eval_constraints(x, ccfg), lambda x: sd.instance_compact_forms(x, ccfg))
+    handoffs["vm_to_decommit_sorter"] = bool(
+        (cw.chain_unsorted[cw.n] == dw["dec_q_state"][-1]).all()) and cw.n == int(w["dec_q_len"][-1])
+
+    # type 4: demux of the whole log tape, one instance
+    dcfg = dm.DemuxConfig(limit=_next_pow2(len(rows["logs"])))
+    dmw = circuit("demux_log_queue",
+                  lambda: dm.generate_witness(LogQueries.from_lists(rows["logs"], device), dcfg),
+                  lambda x: dm.eval_constraints(x, dcfg), lambda x: dm.instance_compact_form(x, dcfg))
+    handoffs["vm_to_demux"] = _tails_equal(
+        QueueState(zeros4, dmw.input_chain[dmw.n], dmw.n),
+        QueueState(zeros4, dw["log_fwd_tail"][-1], dw["log_fwd_len"][-1]))
+    out_states = dm.output_queue_states(dmw)
+
+    # type 9, then types 11 / 12
+    vcfg = sv.StorageValidityConfig(limit=sorter_limit)
+    svw = circuit("storage_validity",
+                  lambda: sv.generate_witness(
+                      LogQueries.from_lists(rows["storage"], device),
+                      LogQueries.from_lists(rows["storage_sorted"], device), rows["storage_ts"],
+                      vcfg),
+                  lambda x: sv.eval_constraints(x, vcfg), lambda x: sv.instance_compact_forms(x, vcfg))
+    handoffs["demux_to_storage_sorter"] = _tails_equal(
+        QueueState(zeros4, svw.chain_unsorted[svw.execute.shape[0]], svw.n),
+        out_states["rollup_storage"])
+    scfg = ls.LogSorterConfig(limit=sorter_limit)
+    for ctype, qname in ((11, "events"), (12, "l1_messages")):
+        sw = circuit(f"log_sorter_{ctype}",
+                     lambda: ls.generate_witness(LogQueries.from_lists(rows[qname], device),
+                                                 LogQueries.from_lists(rows[qname + "_sorted"], device),
+                                                 scfg),
+                     lambda x: ls.eval_constraints(x, scfg),
+                     lambda x: ls.instance_compact_forms(x, scfg))
+        handoffs[f"demux_to_sorter_{ctype}"] = _tails_equal(
+            QueueState(zeros4, sw.chain_unsorted[sw.execute.shape[0]], sw.n), out_states[qname])
+
+    # type 13: the L1 sorter's survivors, one instance
+    lw = out["log_sorter_12"][0]
+    total = lw.execute.shape[0]
+    survivors = _rows(lw.result_items, lw.result_add)
+    hcfg = lh.LinearHasherConfig(limit=_next_pow2(max(1, len(survivors))))
+    hw = circuit("linear_hasher",
+                 lambda: lh.generate_witness(LogQueries.from_lists(survivors, device), hcfg),
+                 lambda x: lh.eval_constraints(x, hcfg), lambda x: lh.instance_compact_form(x, hcfg))
+    handoffs["l1_sorter_to_hasher"] = _tails_equal(
+        QueueState(zeros4, hw.input_chain[hw.execute.shape[0]], hw.n),
+        QueueState(zeros4, lw.result_chain[total + 1], lw.result_count[total]))
+    digest = bytes(hw.digest.cpu().tolist())
+    expected = keccak.keccak256_ref(b"".join(lh.serialize_l2_l1_ref(r) for r in survivors))
+    counts = {name: len(rows[name]) for name in ("logs", "storage", "events", "l1_messages")}
+    counts.update(rollbacks=sum(bool(r["rollback"]) for r in rows["logs"]),
+                  decommits=len(rows["dec"]), l1_survivors=len(survivors))
+    return out, handoffs, digest, expected, counts
+
+
+def _bad(res):
+    return [k for k, x in res.items() if not bool(x.all())]
+
+
+def _forms_equal(a, b):
+    import dataclasses
+
+    return all(bool((getattr(a, f.name).cpu() == getattr(b, f.name).cpu()).all())
+               for f in dataclasses.fields(a))
+
+
+def log_path_small(dev):
+    """The log path at a small size on the card and on the CPU: every
+    circuit's residuals and compact forms equal, all true; the port's entry()
+    on the card gives the same verdicts as on the CPU."""
+    from zkevm_circuits_tpu_torch import entry
+    from zkevm_circuits_tpu_torch.models import vm
+
+    words, kw = log_program(LOG_PATH_SMALL_ITERATIONS)
+    v = vm.NativeEraVM(words, LOG_PATH_SMALL_CYCLES, **kw)
+    w = v.run()
+    sides = [log_path(v, w, (LOG_PATH_SMALL_LIMIT, LOG_PATH_SMALL_LIMIT), d)
+             for d in (None, torch.device("cpu"))]
+    (card, card_h, card_d, want, counts), (cpu, cpu_h, cpu_d, _, _) = sides
+    for name in cpu:
+        if list(card[name][1]) != list(cpu[name][1]):
+            _fail(f"log path small: {name} residual keys differ between the card and the CPU")
+        for k, x in card[name][1].items():
+            if not torch.equal(x.cpu(), cpu[name][1][k]):
+                _fail(f"log path small: {name} residual {k} on the card differs from the CPU's")
+        if not _forms_equal(card[name][2], cpu[name][2]):
+            _fail(f"log path small: {name} compact forms on the card differ from the CPU's")
+        if _bad(cpu[name][1]):
+            _fail(f"log path small: {name} residuals {_bad(cpu[name][1])} are false")
+        if name != "main_vm" and card[name][0].execute.device.type != dev.type:
+            _fail(f"log path small: the {name} witness is not on the card")
+    if card_h != cpu_h or not all(card_h.values()) or card_d != cpu_d or card_d != want:
+        _fail(f"log path small: handoffs {card_h} / {cpu_h}, digests equal "
+              f"{card_d == cpu_d == want}")
+    fn, (dw,) = entry.entry()
+    cfn, (cdw,) = entry.entry(device="cpu")
+    got, ref = fn(dw), cfn(cdw)
+    if dw["regs"].device.type != dev.type or not torch.equal(got.cpu(), ref) or not bool(got.all()):
+        _fail("entry() on the card does not give the CPU's verdicts, all true")
+    print(f"log path small: {LOG_PATH_SMALL_CYCLES} cycles, instances of {LOG_PATH_SMALL_LIMIT}, "
+          f"{counts}: {len(cpu)} circuits' residuals and compact forms on the card == on the CPU, "
+          f"all true; handoffs {sorted(card_h)} true; L1 digest == host keccak; entry() on the "
+          f"card == on the CPU ({got.shape[0]} verdicts, all true)", flush=True)
+
+
+def log_probes(out, limits):
+    """The five negative probes on the full-width witnesses; each must fail
+    exactly the residuals (and rows) that the JAX package fails on the same
+    change (held on the CPU by tests/test_torch_log_*.py)."""
+    from zkevm_circuits_tpu_torch.models import demux_log_queue as dm
+    from zkevm_circuits_tpu_torch.models import linear_hasher as lh
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+    from zkevm_circuits_tpu_torch.models import storage_validity as sv
+
+    sorter_limit = limits[1]
+
+    def expect(res, want, what):
+        got = {k: torch.nonzero(~x.reshape(-1)).flatten().tolist()
+               for k, x in res.items() if not bool(x.all())}
+        if got != want:
+            _fail(f"probe {what}: expected {want} to fail, got {got}")
+        return got
+
+    svw = out["storage_validity"][0]
+    forged, want = probe_storage_written_value(svw)
+    got1 = expect(sv.eval_constraints(forged, sv.StorageValidityConfig(limit=sorter_limit)),
+                  want, "storage written_value")
+    dmw = out["demux_log_queue"][0]
+    forged, want = probe_demux_flag(dmw)
+    got2 = expect(dm.eval_constraints(forged, dm.DemuxConfig(limit=dmw.execute.shape[0])),
+                  want, "demux out-flag")
+    ew = out["log_sorter_11"][0]
+    forged, want = probe_swapped_events(ew, sorter_limit)
+    got3 = expect(ls.eval_constraints(forged, ls.LogSorterConfig(limit=sorter_limit)),
+                  want, "swapped events")
+    hw = out["linear_hasher"][0]
+    forged, want = probe_keccak_lane(hw)
+    got4 = expect(lh.eval_constraints(forged, lh.LinearHasherConfig(limit=hw.execute.shape[0])),
+                  want, "keccak lane")
+    dw, _, forms = out["main_vm"]
+    chain, want = probe_vm_boundary(dw, forms, limits[0])
+    got5 = expect(chain, want, "VM FSM boundary")
+    print(f"log path negative probes: storage written_value fails {got1}; demux out-flag fails "
+          f"{got2}; swapped events fail {got3}; keccak lane fails {got4}; VM FSM boundary fails "
+          f"{got5}", flush=True)
+
+
+# --- the negative probes: each returns the changed input and what must fail
+# (residual -> failing rows), the same rule the CPU tests hold to the JAX package
+
+
+def probe_storage_written_value(w):
+    """one limb of written_value of the first sorted storage write that is not
+    a rollback: its encoding and the cell state it moves to no longer agree"""
+    import dataclasses
+
+    s = w.sorted
+    row = int(torch.nonzero(w.execute & s.rw_flag & ~s.rollback)[0])
+    value = s.written_value.clone()
+    value[row, 0] ^= 1
+    forged = dataclasses.replace(w, sorted=dataclasses.replace(s, written_value=value))
+    return forged, {"encoding_sorted": [row], "cell_state_transitions": [row]}
+
+
+def probe_demux_flag(w):
+    """the out-flag of the first row routed to the events queue, cleared"""
+    import dataclasses
+
+    flags = dict(w.out_flags)
+    row = int(torch.nonzero(flags["events"])[0])
+    flags["events"] = flags["events"].clone()
+    flags["events"][row] = False
+    return dataclasses.replace(w, out_flags=flags), {
+        "flags_events": [row], "chain_events": [row], "count_events": [row]}
+
+
+def probe_swapped_events(w, limit):
+    """two neighbouring sorted events swapped (a witness made from the
+    mis-sorted tape): the second of them is out of order and nothing else"""
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+
+    s, n = w.sorted, w.n
+    rb = s.rollback[:n].cpu().numpy()
+    ts = s.timestamp[:n].cpu().numpy()
+    row = next(r for r in range(1, n - 2)
+               if not rb[r - 1: r + 3].any() and len(set(ts[r - 1: r + 3])) == 4)
+    perm = torch.arange(n, device=s.timestamp.device)
+    perm[row], perm[row + 1] = row + 1, row
+    swapped = LogQueries(*[getattr(s, f.name)[:n][perm] for f in dataclasses.fields(LogQueries)])
+    unsorted = LogQueries(*[getattr(w.unsorted, f.name)[:n] for f in dataclasses.fields(LogQueries)])
+    forged = ls.generate_witness(unsorted, swapped, ls.LogSorterConfig(limit=limit))
+    return forged, {"sort_order": [row + 1]}
+
+
+def probe_keccak_lane(w):
+    """one lane of the keccak state after the first block: the transitions
+    into and out of it fail"""
+    import dataclasses
+
+    lo = w.state_lo.clone()
+    lo[1, 3] ^= 1
+    want = {"keccak_chain": [0, 1] if lo.shape[0] > 2 else [0]}
+    if int(w.block_execute.sum()) == 1:  # the digest reads this state's lane 3
+        want["digest"] = [0]
+    return dataclasses.replace(w, state_lo=lo), want
+
+
+def probe_vm_boundary(dw, forms, limit):
+    """the hidden FSM input of instance 2 commits to a boundary state with a
+    changed timestamp: the chaining fails between instances 1 and 2"""
+    from zkevm_circuits_tpu_torch.models.vm import compact
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.utils import protocol
+
+    enc = compact.encode_local_state(dw, [2 * limit])
+    enc[0, 124] = gf.add(enc[0, 124], gf.ones((), enc.device))  # lane 124: the timestamp
+    forged = forms.hidden_fsm_input_commitment.clone()
+    forged[2] = protocol.commit_encoding(enc)[0]
+    chain = protocol.check_instance_chaining(
+        forms.start_flag, forms.completion_flag, forged, forms.hidden_fsm_output_commitment)
+    return chain, {"fsm_handoff": [1]}
+
+
+def log_path_full(dev, card):
+    """Phase (a): the log-heavy program for 2^16 cycles through the native
+    EraVM, then the block's log and decommit queues on the card."""
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+
+    n = 1 << LOG2_LOG_PATH_CYCLES
+    words, kw = log_program(LOG_PATH_ITERATIONS)
+    t0 = time.perf_counter()
+    v = vm.NativeEraVM(words, n, **kw)
+    w = v.run()
+    sim_s = time.perf_counter() - t0
+    limits = (1 << LOG2_LOG_LIMIT, 1 << LOG2_LOG_LIMIT)
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    out, handoffs, digest, want, counts = log_path(v, w, limits, None, times)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = KERNEL.counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = {name: _bad(res) for name, (_, res, _) in out.items() if _bad(res)}
+    if bad:
+        _fail(f"log path at 2^{LOG2_LOG_PATH_CYCLES} cycles: residuals {bad} are false")
+    if not all(handoffs.values()) or digest != want:
+        _fail(f"log path: handoffs {handoffs}, L1 digest == host keccak: {digest == want}")
+    forms = out["main_vm"][2]
+    if forms.start_flag.shape[0] != n >> LOG2_LOG_LIMIT:
+        _fail(f"main_vm: {forms.start_flag.shape[0]} instances, not {n >> LOG2_LOG_LIMIT}")
+    for name in ("permutation", "permutation_small"):
+        if launches[name] <= 0:
+            _fail(f"the log path launched the {name} kernel no time")
+    short = [k for k, need in (("storage", 1 << 13), ("events", 1 << 12), ("l1_messages", 1 << 9),
+                               ("decommits", 1 << 10)) if counts[k] < need]
+    rows = {name: int(x[0].execute.shape[0]) for name, x in out.items() if name != "main_vm"}
+    print(f"log path: host sim 2^{LOG2_LOG_PATH_CYCLES} cycles {sim_s:.3f} s; counts {counts} "
+          f"(below the targets: {short or 'none'}); rows a circuit {rows}; instances of "
+          f"2^{LOG2_LOG_LIMIT}; seconds first / steady "
+          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          + f"; the whole path {path_s:.3f} s; all residuals true; handoffs {sorted(handoffs)} "
+          f"true; L1 digest {digest.hex()[:16]}.. == host keccak over {counts['l1_survivors']} "
+          f"survivors; Poseidon2 launches over the path {launches}; peak device memory "
+          f"{peak / 2**20:.1f} MiB [{card}]", flush=True)
+    log_probes(out, limits)
+    return launches
+
+
+def event_tapes(n_rows, seed):
+    """Seeded event tapes of `n_rows` rows: forward events with increasing
+    timestamps, about one in eight followed (in the VM's order, at the end of
+    its block of 64) by its rollback; returns (unsorted, sorted) column dicts."""
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+
+    rng = np.random.default_rng(seed)
+    forward = n_rows * 8 // 9
+    reverted = rng.random(forward) < 1 / 8
+    while forward + int(reverted.sum()) > n_rows:
+        reverted[np.flatnonzero(reverted)[-1]] = False
+    ts = np.cumsum(rng.integers(1, 4, size=forward)).astype(np.uint32) + 1024
+    order, rollback = [], []
+    for start in range(0, forward, 64):
+        block = np.arange(start, min(start + 64, forward))
+        order += block.tolist() + block[reverted[block]][::-1].tolist()
+        rollback += [False] * len(block) + [True] * int(reverted[block].sum())
+    order, rollback = np.asarray(order), np.asarray(rollback)
+    n = len(order)
+    cols = dict(
+        address=rng.integers(0, 1 << 32, size=(forward, 5), dtype=np.uint64).astype(np.uint32),
+        key=rng.integers(0, 1 << 32, size=(forward, 8), dtype=np.uint64).astype(np.uint32),
+        written_value=rng.integers(0, 1 << 32, size=(forward, 8), dtype=np.uint64).astype(np.uint32),
+        tx_number_in_block=(np.arange(forward) // 256).astype(np.uint32),
+        timestamp=ts,
+    )
+    unsorted = {k: v[order] for k, v in cols.items()}
+    unsorted.update(
+        read_value=np.zeros((n, 8), np.uint32),
+        aux_byte=np.full(n, sp.EVENT_AUX_BYTE, np.uint32),
+        rw_flag=np.ones(n, bool), rollback=rollback, is_service=np.zeros(n, bool),
+        shard_id=np.zeros(n, np.uint32),
+    )
+    perm = np.lexsort((unsorted["rollback"], unsorted["timestamp"]))
+    return unsorted, {k: v[perm] for k, v in unsorted.items()}
+
+
+def log_sorter_full(dev, card):
+    """Phase (b): the events sorter at 2^18 rows in 4 instances, from numpy
+    tapes through the host pipeline, then its evaluation and compact forms."""
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.runtime import native
+
+    n_rows = (1 << LOG2_LOG_SORTER_ROWS) - 1
+    unsorted, sorted_t = event_tapes(n_rows, 18)
+    cfg = ls.LogSorterConfig(limit=1 << LOG2_LOG_SORTER_LIMIT)
+    spent = []
+    chains = native.narrow_chains
+
+    def timed_chains(*args):
+        t0 = time.perf_counter()
+        try:
+            return chains(*args)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    native.narrow_chains = timed_chains
+    try:
+        torch.cuda.synchronize()
+        KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        w = ls.generate_witness_host_tapes(unsorted, sorted_t, cfg)
+        torch.cuda.synchronize()
+        witness_s = time.perf_counter() - t0
+        witness_launches = KERNEL.counts()
+    finally:
+        native.narrow_chains = chains
+    total = w.execute.shape[0]
+    if total != 1 << LOG2_LOG_SORTER_ROWS or w.enc_sorted.device.type != dev.type:
+        _fail(f"log sorter witness: {total} rows on {w.enc_sorted.device}")
+    first_s, steady_s, launches, res, peak = timed_evals(lambda: ls.eval_constraints(w, cfg), KERNEL)
+    if _bad(res):
+        _fail(f"log sorter at 2^{LOG2_LOG_SORTER_ROWS} rows: residuals {_bad(res)} are false")
+    KERNEL.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forms = ls.instance_compact_forms(w, cfg)
+    torch.cuda.synchronize()
+    forms_s = time.perf_counter() - t0
+    launches = {k: witness_launches[k] + launches[k] + v for k, v in KERNEL.counts().items()}
+    if forms.start_flag.shape[0] != 1 << (LOG2_LOG_SORTER_ROWS - LOG2_LOG_SORTER_LIMIT):
+        _fail(f"log sorter: {forms.start_flag.shape[0]} instances")
+    print(f"log sorter: 2^{LOG2_LOG_SORTER_ROWS} rows ({w.n} executed, "
+          f"{int(w.sorted.rollback.sum())} of them rollbacks, {int(w.result_count[-1])} "
+          f"survivors), "
+          f"{forms.start_flag.shape[0]} instances of 2^{LOG2_LOG_SORTER_LIMIT}; witness "
+          f"{witness_s:.3f} s of which host chains {sum(spent):.3f} s; eval_constraints first "
+          f"{first_s:.4f} s, steady {steady_s:.4f} s ({total / steady_s:.1f} rows/s), "
+          f"{len(res)} residuals all true; compact forms {forms_s:.4f} s; kernel launches of the "
+          f"witness, one evaluation and the compact forms {launches}; peak device memory "
+          f"{peak / 2**20:.1f} MiB [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
@@ -903,6 +1522,10 @@ def main():
     del w, full, forms, carried
     torch.cuda.empty_cache()
     launches_logup = logup_path(dev, card)
+    log_path_small(dev)
+    launches_log_path = log_path_full(dev, card)
+    torch.cuda.empty_cache()
+    launches_log_sorter = log_sorter_full(dev, card)
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
@@ -911,7 +1534,9 @@ def main():
         by_path = dict(launches_prove=launches_prove[key], launches_ram_eval=launches_ram_eval[key],
                        launches_vm_eval=launches_vm_eval[key],
                        launches_sorter_full=launches_sorter_full[key],
-                       launches_logup=launches_logup[key])
+                       launches_logup=launches_logup[key],
+                       launches_log_path=launches_log_path[key],
+                       launches_log_sorter=launches_log_sorter[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

@@ -1,8 +1,10 @@
 """Where the time goes in the torch port's two constraint evaluations, its
-prove+verify and its fully proof-backed sorter argument, on one CUDA card.
+prove+verify, its fully proof-backed sorter argument and the block's log path,
+on one CUDA card.
 
     python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles] [log2_prove_rows]
-                                          [log2_sorter_full_rows]
+                                          [log2_sorter_full_rows] [log2_log_path_cycles]
+                                          [log2_log_sorter_rows]
 
 A size of 0 skips that part.  For ram_permutation.eval_constraints (default
 2^20 rows, chain stride 512), vm.eval_constraints (default 2^16 cycles),
@@ -19,7 +21,13 @@ makes it), and the witness generation with the native host chains' share of
 it.  For the sorter full argument it also times its parts one by one, as
 prove_sorter_full runs them (the grand-product prove and verify, each
 chain STARK's prove and verify), then the compact-commitment STARKs of the
-instances and the recursion leaf check over them.  Every
+instances and the recursion leaf check over them.  For the log path (default
+chip_smoke.py's log-heavy program for 2^16 cycles, instances of 2^12) it
+prints each circuit's steady evaluation, one profiled window over all seven
+evaluations and one over the linear hasher's alone, and the share of demux's
+witness that turning the log rows into tensors takes; for the log sorter
+(default 2^18 rows of chip_smoke.py's event tapes in instances of 2^16) the
+witness with its native chains' share and a profiled evaluation.  Every
 line carries the card's name and power limit.  Needs a CUDA card.
 """
 
@@ -164,6 +172,8 @@ def main():
     log_vm = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     log_prove = int(sys.argv[3]) if len(sys.argv) > 3 else 16
     log_sorter = int(sys.argv[4]) if len(sys.argv) > 4 else 16
+    log_path_cycles = int(sys.argv[5]) if len(sys.argv) > 5 else 16
+    log_sorter_rows = int(sys.argv[6]) if len(sys.argv) > 6 else 18
     card = card_line()
     if log_ram:
         ram_eval(log_ram, card)
@@ -173,6 +183,77 @@ def main():
         prove(log_prove, card)
     if log_sorter:
         sorter_full(log_sorter, card)
+    if log_path_cycles:
+        log_path_eval(log_path_cycles, card)
+    if log_sorter_rows:
+        log_sorter_eval(log_sorter_rows, card)
+
+
+def log_path_eval(log_cycles, card):
+    import chip_smoke
+    from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
+    from zkevm_circuits_tpu_torch.models import demux_log_queue as dm
+    from zkevm_circuits_tpu_torch.models import linear_hasher as lh
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+    from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
+    from zkevm_circuits_tpu_torch.models import storage_validity as sv
+
+    cycles = 1 << log_cycles
+    iterations = chip_smoke.LOG_PATH_ITERATIONS * cycles >> chip_smoke.LOG2_LOG_PATH_CYCLES
+    limit = min(cycles, 1 << chip_smoke.LOG2_LOG_LIMIT)
+    words, kw = chip_smoke.log_program(iterations)
+    v = vm.NativeEraVM(words, cycles, **kw)
+    w = v.run()
+    out, _, _, _, counts = chip_smoke.log_path(v, w, (limit, limit), None)
+    dw = out["main_vm"][0]
+    evals = {
+        "main_vm": lambda: vm.eval_constraints(dw, cycles),
+        "sort_decommittments": lambda: sd.eval_constraints(
+            out["sort_decommittments"][0], sd.DecommitSorterConfig(limit)),
+        "demux_log_queue": lambda: dm.eval_constraints(
+            out["demux_log_queue"][0],
+            dm.DemuxConfig(out["demux_log_queue"][0].execute.shape[0])),
+        "storage_validity": lambda: sv.eval_constraints(
+            out["storage_validity"][0], sv.StorageValidityConfig(limit)),
+        "log_sorter_11": lambda: ls.eval_constraints(out["log_sorter_11"][0], ls.LogSorterConfig(limit)),
+        "log_sorter_12": lambda: ls.eval_constraints(out["log_sorter_12"][0], ls.LogSorterConfig(limit)),
+        "linear_hasher": lambda: lh.eval_constraints(
+            out["linear_hasher"][0],
+            lh.LinearHasherConfig(out["linear_hasher"][0].execute.shape[0])),
+    }
+    steady = {name: wall(fn) for name, fn in evals.items()}
+    print(f"log path 2^{log_cycles} cycles {counts}: steady evaluations "
+          + "; ".join(f"{name} {1000 * s:.1f} ms" for name, s in steady.items())
+          + f"; sum {1000 * sum(steady.values()):.1f} ms [{card}]", flush=True)
+    profile(f"log path, the {len(evals)} evaluations", lambda: [fn() for fn in evals.values()], card)
+    profile("linear hasher eval", evals["linear_hasher"], card)
+    logs = [dict(q) for q in v.log_tape]
+    tensors, rows_s = timed(lambda: LogQueries.from_lists(logs))
+    _, gen_s = timed(lambda: dm.generate_witness(tensors, dm.DemuxConfig(
+        out["demux_log_queue"][0].execute.shape[0])))
+    print(f"demux witness of {len(logs)} log rows: rows to tensors {rows_s:.3f} s, "
+          f"generate_witness (7 native chains in one call) {gen_s:.3f} s [{card}]", flush=True)
+    del out, dw
+    torch.cuda.empty_cache()
+
+
+def log_sorter_eval(log_rows, card):
+    import chip_smoke
+    from zkevm_circuits_tpu_torch.base_structures.log_query import encode_log_queries_np
+    from zkevm_circuits_tpu_torch.models import log_sorter as ls
+
+    tapes = chip_smoke.event_tapes((1 << log_rows) - 1, 18)
+    cfg = ls.LogSorterConfig(limit=min(1 << log_rows, 1 << chip_smoke.LOG2_LOG_SORTER_LIMIT))
+    w, witness_s = timed(lambda: ls.generate_witness_host_tapes(*tapes, cfg))
+    enc = np.stack([encode_log_queries_np(**t) for t in tapes] * 2)[:3]
+    t0 = time.perf_counter()
+    native.narrow_chains(enc, None, np.zeros((3, 4), np.uint64))
+    chains_s = time.perf_counter() - t0
+    print(f"log sorter witness 2^{log_rows} rows: {witness_s:.3f} s, of which three native "
+          f"narrow chains of the same length {chains_s:.3f} s [{card}]", flush=True)
+    profile(f"log sorter eval 2^{log_rows} rows", lambda: ls.eval_constraints(w, cfg), card)
+    del w
+    torch.cuda.empty_cache()
 
 
 def ram_eval(log_ram, card):

@@ -38,7 +38,10 @@ def test_port_modules_import_without_jax():
     assert "zkevm_circuits_tpu_torch.models.vm.circuit" in mods
     assert "zkevm_circuits_tpu_torch.isa.opcodes" in mods
     for name in ("prover.poseidon2_air", "prover.recursion_proofs", "prover.logup",
-                 "models.recursion", "ops.keccak"):
+                 "models.recursion", "ops.keccak", "models.vm.sim", "models.vm.compact",
+                 "entry", "models.sort_decommittment_requests", "models.demux_log_queue",
+                 "models.storage_validity", "models.log_sorter", "models.linear_hasher",
+                 "ops.sha256", "ops.secp256k1"):
         assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

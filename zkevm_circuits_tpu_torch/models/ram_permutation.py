@@ -197,14 +197,11 @@ def generate_witness(
 ) -> RamPermutationWitness:
     """The full trace from the two query tapes, on the tapes' device.
 
-    backend="device": the sponge chains step by step in torch
-                      (`queues.simulate_chain`, every state kept).
-    backend="host":   the chains in the native C++ runtime."""
+    backend: how the two sponge chains run (`queues.simulate_chains`):
+    "device", step by step in torch; "host", the native C++ runtime."""
     n = unsorted.shape[0]
     if sorted_q.shape[0] != n:
         raise ValueError("queues must pop in lockstep")
-    if backend not in ("device", "host"):
-        raise ValueError(f"unknown backend {backend!r}")
     dev = unsorted.timestamp.device
     total = max(1, -(-n // config.limit)) * config.limit
     unsorted = _pad_queries(unsorted, total)
@@ -212,15 +209,8 @@ def generate_witness(
     execute = torch.arange(total, device=dev) < n
     enc_u = encode_memory_queries(unsorted)
     enc_s = encode_memory_queries(sorted_q)
-    if backend == "host":
-        ex_np = execute.cpu().numpy()
-        init_np = np.zeros(12, dtype=np.uint64)
-        chain_u = gf.from_u64(native.full_state_chain(gf.to_u64(enc_u), ex_np, init_np), dev)
-        chain_s = gf.from_u64(native.full_state_chain(gf.to_u64(enc_s), ex_np, init_np), dev)
-    else:
-        init = gf.zeros((12,), dev)
-        chain_u = queues.simulate_chain(init, enc_u, execute)
-        chain_s = queues.simulate_chain(init, enc_s, execute)
+    chain_u, chain_s = queues.simulate_chains(
+        queues.FULL_STATE_WIDTH, [(enc_u, execute), (enc_s, execute)], backend)
     return finish_stage(
         unsorted, sorted_q, execute, chain_u, chain_s, n, snapshot_length,
         config.bootloader_heap_page,

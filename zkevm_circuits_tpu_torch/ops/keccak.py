@@ -1,14 +1,26 @@
-"""keccak-f[1600] and keccak256 (original 0x01 padding) on python ints.
+"""keccak-f[1600] and keccak256 (original 0x01 padding): a batched torch
+form and the host reference on python ints (the JAX package's
+`ops/keccak.py`).
 
-The host reference of the JAX package's `ops/keccak.py`, copied so that the
-port needs nothing of that package: the recursion layer's interblock
-aggregator (`models/recursion.py`) hashes with it.  The batched keccak of
-the precompile circuits is not ported yet.
+Batched form: a batch of states is a pair of int64 tensors (lo, hi) of shape
+(..., 25), each holding the low or high 32 bits of a 64-bit lane, as the JAX
+package lays it out.  Every left shift is cut back to 32 bits (`& M32`); a
+right shift acts on a value already in [0, 2^32), so the arithmetic shift of
+int64 is the logical one; a NOT is always ANDed with an in-range value, which
+clears its upper bits.  The 24 rounds are a Python loop over the batch (the
+JAX package scans them); the linear hasher checks its keccak chain with
+`absorb_block` on the card.
+
+Host reference (`keccak_f1600_ref`, `keccak256_ref`): copied so that the port
+needs nothing of the JAX package; the recursion layer's interblock aggregator
+(`models/recursion.py`) and the linear hasher's witness chain use it.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
+
+import torch
 
 KECCAK_RATE_BYTES = 136
 KECCAK_ROUNDS = 24
@@ -35,6 +47,81 @@ ROT = [
 def _idx(x: int, y: int) -> int:
     return x + 5 * y
 
+
+# ---------------------------------------------------------------------------
+# Batched (lo, hi) u32-pair form on torch tensors
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def _rotl64(lo: torch.Tensor, hi: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    r %= 64
+    if r == 0:
+        return lo, hi
+    if r == 32:
+        return hi, lo
+    if r < 32:
+        t = 32 - r
+        return ((lo << r) & M32) | (hi >> t), ((hi << r) & M32) | (lo >> t)
+    s, t = r - 32, 64 - r
+    return ((hi << s) & M32) | (lo >> t), ((lo << s) & M32) | (hi >> t)
+
+
+def _round(lo: torch.Tensor, hi: torch.Tensor, rc_lo: int, rc_hi: int):
+    """One keccak round on (..., 25) u32 pairs (static lane shuffles)."""
+    L = [lo[..., i] for i in range(25)]
+    H = [hi[..., i] for i in range(25)]
+    # theta
+    CL = [L[_idx(x, 0)] ^ L[_idx(x, 1)] ^ L[_idx(x, 2)] ^ L[_idx(x, 3)] ^ L[_idx(x, 4)]
+          for x in range(5)]
+    CH = [H[_idx(x, 0)] ^ H[_idx(x, 1)] ^ H[_idx(x, 2)] ^ H[_idx(x, 3)] ^ H[_idx(x, 4)]
+          for x in range(5)]
+    for x in range(5):
+        rl, rh = _rotl64(CL[(x + 1) % 5], CH[(x + 1) % 5], 1)
+        dl = CL[(x - 1) % 5] ^ rl
+        dh = CH[(x - 1) % 5] ^ rh
+        for y in range(5):
+            L[_idx(x, y)] = L[_idx(x, y)] ^ dl
+            H[_idx(x, y)] = H[_idx(x, y)] ^ dh
+    # rho + pi
+    BL = [None] * 25
+    BH = [None] * 25
+    for x in range(5):
+        for y in range(5):
+            rl, rh = _rotl64(L[_idx(x, y)], H[_idx(x, y)], ROT[x][y])
+            BL[_idx(y, (2 * x + 3 * y) % 5)] = rl
+            BH[_idx(y, (2 * x + 3 * y) % 5)] = rh
+    # chi (the NOT of an in-range value ANDed with an in-range value stays in range)
+    for x in range(5):
+        for y in range(5):
+            L[_idx(x, y)] = BL[_idx(x, y)] ^ (~BL[_idx((x + 1) % 5, y)] & BL[_idx((x + 2) % 5, y)])
+            H[_idx(x, y)] = BH[_idx(x, y)] ^ (~BH[_idx((x + 1) % 5, y)] & BH[_idx((x + 2) % 5, y)])
+    # iota
+    L[0] = L[0] ^ rc_lo
+    H[0] = H[0] ^ rc_hi
+    return torch.stack(L, dim=-1), torch.stack(H, dim=-1)
+
+
+def keccak_f1600(lo: torch.Tensor, hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One permutation over a batch; lo/hi (..., 25) int64 holding u32 halves."""
+    for rc in ROUND_CONSTANTS:
+        lo, hi = _round(lo, hi, rc & M32, rc >> 32)
+    return lo, hi
+
+
+def absorb_block(lo, hi, block_lo, block_hi):
+    """XOR a 17-lane (136-byte) block into the state and permute.
+
+    block_*: (..., 17) int64 holding u32 halves."""
+    pad = tuple(lo.shape[:-1]) + (25 - 17,)
+    z = torch.zeros(pad, dtype=lo.dtype, device=lo.device)
+    return keccak_f1600(lo ^ torch.cat([block_lo, z], dim=-1), hi ^ torch.cat([block_hi, z], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Host reference (python ints)
+# ---------------------------------------------------------------------------
 
 _M64 = (1 << 64) - 1
 

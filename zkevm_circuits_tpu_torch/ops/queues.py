@@ -16,7 +16,8 @@ Sponge conventions:
 
 `simulate_chain` steps through the chain in a Python loop, one batched
 permutation (one kernel launch on the card) per step; bulk tapes go through
-the native runtime (`runtime/native.py`).  The segmented recompute
+the native runtime (`runtime/native.py`), several chains in one call through
+`simulate_chains(..., backend="host")`.  The segmented recompute
 (`check_chain_segmented`) of a full-state chain on the card is one launch of
 the fused chain kernel (`ops/poseidon2_cuda.py:chain_segmented_cuda`), the
 two chains of an evaluation sharing it; on the CPU, and for the narrow queue
@@ -30,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device
@@ -127,6 +129,43 @@ def simulate_chain(
     for i in range(n):
         states.append(transition(states[-1], encodings[i], execute[i]))
     return torch.stack(states)
+
+
+def simulate_chains(
+    width: int, chains: Sequence[Tuple[torch.Tensor, torch.Tensor]], backend: str = "host"
+) -> List[torch.Tensor]:
+    """Several sponge chains from the empty state, every state of each.
+
+    chains: [(encodings (n_k, L), execute (n_k,) bool)], all of one encoding
+    length L and on one device; returns [(n_k + 1, W)] on that device.
+    backend="host": one call of the native runtime for all of them (the
+    shorter chains padded to the longest with rows not executed, then cut
+    back), one download of the encodings and one upload of the states; the
+    witness path on the card.
+    backend="device": `simulate_chain` chain by chain, a batched permutation
+    a step: the plain version, for a few rows on the CPU."""
+    if backend == "device":
+        return [simulate_chain(gf.zeros((width,), enc.device), enc, ex) for enc, ex in chains]
+    if backend != "host":
+        raise ValueError(f"unknown backend {backend!r}")
+    from ..runtime import native
+
+    dev = chains[0][0].device
+    length = chains[0][0].shape[-1]
+    longest = max(enc.shape[0] for enc, _ in chains)
+    enc = np.zeros((len(chains), longest, length), np.uint64)
+    ex = np.zeros((len(chains), longest), np.uint8)
+    for k, (e, x) in enumerate(chains):
+        enc[k, : e.shape[0]] = gf.to_u64(e)
+        ex[k, : e.shape[0]] = x.cpu().numpy()
+    init = np.zeros((len(chains), width), np.uint64)
+    if width == FULL_STATE_WIDTH:
+        if length != poseidon2.RATE:
+            raise ValueError(f"a full-state chain absorbs {poseidon2.RATE} elements a row")
+        states = native.full_state_chains(enc, ex, init)
+    else:
+        states = native.narrow_chains(enc, ex, init)
+    return [gf.from_u64(states[k, : e.shape[0] + 1], dev) for k, (e, _) in enumerate(chains)]
 
 
 Chain = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]

@@ -12,20 +12,37 @@ a `StarkProof` on a device, so that a proof made elsewhere (the JAX
 package's, as the tests write it out) goes to the port's verifiers;
 `residuals_to_numpy` turns a residual dict into numpy arrays, so that both
 compare with `==`.
+
+The log and decommit circuits' witnesses (`decommit_sorter_witness_from_numpy`,
+`demux_witness_from_numpy`, `storage_validity_witness_from_numpy`,
+`log_sorter_witness_from_numpy`, `linear_hasher_witness_from_numpy`) and a
+batch of compact forms (`compact_forms_from_numpy`, the VM's included) are
+built the same way from a dict of numpy arrays with the JAX witness's field
+names: field elements as u64, u32 values as any integer dtype, flags as bool,
+a batch of queries as a dict of its columns, the dict-valued fields as dicts.
+`witness_to_numpy` is the inverse, field elements as u64 and the rest as
+int64 / bool, so that two witnesses compare by value.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..base_structures.decommit_query import DecommitQueries
+from ..base_structures.log_query import LogQueries
 from ..base_structures.memory_query import MemoryQueries
+from ..models import demux_log_queue, linear_hasher, log_sorter, sort_decommittment_requests
+from ..models import storage_validity
 from ..models.ram_permutation import RamPermutationWitness
 from ..models.vm.circuit import prepare_device_witness as vm_witness_from_numpy  # noqa: F401
 from ..ops import fri, gf
 from ..ops.gf import from_u64, to_u64  # noqa: F401  u64 numpy <-> field tensors
 from ..prover.stark import StarkProof
 from .device import resolve_device
+from .protocol import ClosedFormInputCompactForm
 
 
 def witness_from_numpy(fields: dict, device=None) -> RamPermutationWitness:
@@ -54,6 +71,104 @@ def witness_from_numpy(fields: dict, device=None) -> RamPermutationWitness:
         nondet_count=torch.from_numpy(np.array(fields["nondet_count"], np.int64)).to(device),
         snapshot_length=int(fields["snapshot_length"]),
     )
+
+
+def _tensor(value, device, field: bool) -> torch.Tensor:
+    arr = np.asarray(value)
+    if field:
+        return gf.from_u64(arr.astype(np.uint64), device)
+    if arr.dtype == np.bool_:
+        return torch.from_numpy(arr.copy()).to(device)
+    return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def _from_numpy(cls, fields: dict, device, field_names=(), query_names=(), queries=LogQueries):
+    """A witness dataclass from numpy fields: `n` an int, the `query_names`
+    batches of `queries` from their column dicts, the `field_names` (or the
+    dict fields they name) field elements, the rest u32 or bool tensors."""
+    device = resolve_device(device)
+    out = {}
+    for f in dataclasses.fields(cls):
+        v, is_field = fields[f.name], f.name in field_names
+        if f.name == "n":
+            out[f.name] = int(v)
+        elif f.name in query_names:
+            out[f.name] = queries.from_numpy(v, device)
+        elif isinstance(v, dict):
+            out[f.name] = {k: _tensor(x, device, is_field) for k, x in v.items()}
+        else:
+            out[f.name] = _tensor(v, device, is_field)
+    return cls(**out)
+
+
+_CHAINS = ("chain_unsorted", "chain_sorted", "challenges", "lhs", "rhs", "result_chain")
+
+
+def decommit_sorter_witness_from_numpy(fields: dict, device=None):
+    """fields of a `sort_decommittment_requests.DecommitSorterWitness`;
+    `device` None is the card."""
+    return _from_numpy(sort_decommittment_requests.DecommitSorterWitness, fields, device,
+                       _CHAINS + ("enc_unsorted", "enc_sorted"),
+                       ("unsorted", "sorted", "result_items"), DecommitQueries)
+
+
+def demux_witness_from_numpy(fields: dict, device=None):
+    """fields of a `demux_log_queue.DemuxWitness` (out_flags, out_chains and
+    out_counts as dicts by queue name); `device` None is the card."""
+    return _from_numpy(demux_log_queue.DemuxWitness, fields, device,
+                       ("encodings", "input_chain", "out_chains"), ("queries",))
+
+
+def storage_validity_witness_from_numpy(fields: dict, device=None):
+    """fields of a `storage_validity.StorageValidityWitness` (cell_states as a
+    dict of its columns); `device` None is the card."""
+    return _from_numpy(storage_validity.StorageValidityWitness, fields, device,
+                       _CHAINS + ("enc_unsorted_ext", "enc_sorted_ext"),
+                       ("unsorted", "sorted", "push_items"))
+
+
+def log_sorter_witness_from_numpy(fields: dict, device=None):
+    """fields of a `log_sorter.LogSorterWitness`; `device` None is the card."""
+    return _from_numpy(log_sorter.LogSorterWitness, fields, device,
+                       _CHAINS + ("enc_unsorted", "enc_sorted"),
+                       ("unsorted", "sorted", "result_items"))
+
+
+def linear_hasher_witness_from_numpy(fields: dict, device=None):
+    """fields of a `linear_hasher.LinearHasherWitness` (keccak lanes as u32
+    halves); `device` None is the card."""
+    return _from_numpy(linear_hasher.LinearHasherWitness, fields, device,
+                       ("encodings", "input_chain"), ("queries",))
+
+
+def compact_forms_from_numpy(fields: dict, device=None) -> ClosedFormInputCompactForm:
+    """A batch of ClosedFormInput compact forms from its six fields (the flags
+    bool, the commitments u64); `device` None is the card."""
+    return _from_numpy(ClosedFormInputCompactForm, fields, device, (
+        "observable_input_commitment", "observable_output_commitment",
+        "hidden_fsm_input_commitment", "hidden_fsm_output_commitment"))
+
+
+def witness_to_numpy(witness, field_names) -> dict:
+    """A port witness (or compact form) as numpy: the `field_names` (and the
+    dict fields they name) as u64, other tensors as int64 or bool, query
+    batches as dicts of columns, `n` as an int."""
+
+    def arr(t, field):
+        return gf.to_u64(t) if field else t.detach().cpu().numpy()
+
+    out = {}
+    for f in dataclasses.fields(witness):
+        v, is_field = getattr(witness, f.name), f.name in field_names
+        if isinstance(v, (LogQueries, DecommitQueries)):
+            out[f.name] = {q.name: arr(getattr(v, q.name), False) for q in dataclasses.fields(v)}
+        elif isinstance(v, dict):
+            out[f.name] = {k: arr(x, is_field) for k, x in v.items()}
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = arr(v, is_field)
+        else:
+            out[f.name] = v
+    return out
 
 
 def residuals_to_numpy(residuals: dict) -> dict:

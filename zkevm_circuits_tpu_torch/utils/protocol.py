@@ -131,6 +131,22 @@ def encode_queue_state_generic(head: torch.Tensor, tail: torch.Tensor, length) -
     return torch.cat([head, tail, gf.from_u32(length).unsqueeze(-1)], dim=-1)
 
 
+def result_queue_state_at(result_chain: torch.Tensor, result_count: torch.Tensor,
+                          bounds: torch.Tensor, total: int) -> torch.Tensor:
+    """The encoded state of a sorter's result queue after `bounds` rows of
+    `total` (head zeros): the chain state at the boundary, the count of pushes
+    before it; at the end the finalization push is included (state `total` +
+    1, count `total`), the JAX package's indices."""
+    at_end = bounds == total
+    res_len = torch.where(
+        bounds == 0, torch.zeros_like(bounds),
+        result_count[torch.where(at_end, bounds, (bounds - 1).clamp(min=0))],
+    )
+    head = gf.zeros(tuple(bounds.shape) + (result_chain.shape[-1],), bounds.device)
+    return encode_queue_state_generic(head, result_chain[torch.where(at_end, bounds + 1, bounds)],
+                                      res_len)
+
+
 def check_instance_chaining(
     start_flags: torch.Tensor,
     completion_flags: torch.Tensor,
