@@ -63,26 +63,57 @@ Phases, each printed on its own line:
      a changed table is rejected;
  13. log path, small: a log-heavy program (`log_program`: a bootloader loop of
      far calls into four callees that write and read storage, emit events and
-     L1 messages and revert every 8th call) for 1,024 cycles, then the block's
-     log and decommit queues as the JAX package's block runtime wires them
-     (`log_path`): main_vm and its instance compact forms, the decommit
-     sorter, demux, the storage, events and L1 sorters and the linear hasher,
-     in instances of 16, on the card and on the CPU: every residual and
-     compact form equal, all true, every handoff true, the L1 digest equal to
-     the host keccak; the port's entry() on the card against the CPU;
+     an L1 message every 2nd iteration and revert every 8th call) for 1,024
+     cycles, then the block's log and decommit queues as the JAX package's
+     block runtime wires them (`runtime.block.log_path`): main_vm and its
+     instance compact forms, the decommit sorter, demux, the storage, events
+     and L1 sorters and the linear hasher, in instances of 16, then storage
+     application on the storage sorter's survivors
+     (`block.storage_application`), on the card and on the CPU: every
+     residual and compact form equal, all true, every handoff true, the L1
+     digest equal to the host keccak, the tree's final root equal to one
+     computed apart from the port's tree (`_replayed_root`: a plain recursion
+     with hashlib's blake2s); the port's entry() on the card against the CPU;
  14. log path, full width: the same program for 2^16 cycles through the
      native EraVM, every circuit in instances of 2^12 (demux and the hasher
-     one instance), all residuals and handoffs true, the digest equal to the
-     host keccak; witness, evaluation and compact-form seconds (first and
-     steady) per circuit, the counts the program reaches, the Poseidon2
-     launches of the path; five negative probes (a storage written_value
-     limb, a demux out-flag, two swapped sorted events, a keccak state lane, a
-     VM instance's FSM boundary), each failing exactly the residuals and rows
-     the JAX package fails (tests/test_torch_log_*.py);
+     one instance, storage application one of the next power of two of its
+     stage rows), all residuals and handoffs true, the digest equal to the
+     host keccak, the final root the replayed one; witness (with the tree's
+     share), evaluation and compact-form seconds (first and steady) per
+     circuit, the counts the program reaches, the Poseidon2 launches of the
+     path; six negative probes (a storage written_value limb, a demux
+     out-flag, two swapped sorted events, a keccak state lane, a VM
+     instance's FSM boundary, a storage path sibling), each failing exactly
+     the residuals and rows the JAX package fails (tests/test_torch_log_*.py,
+     tests/test_torch_storage_application.py);
  15. log sorter, full width: seeded event tapes of 2^18 rows (one event in
      eight rolled back) through `generate_witness_host_tapes` in 4 instances
      of 2^16, witness seconds with the host chains' share, first and steady
-     evaluation seconds, rows/s, compact forms, all true.
+     evaluation seconds, rows/s, compact forms, all true;
+ 16. memory thread, small: a precompile-heavy program (`memory_program`: a
+     bootloader loop of far calls into eight worker callees that keccak-,
+     sha256- and (every 8th) ecrecover-hash data of the bootloader heap
+     through the three precompile contracts) for 1,024 cycles, then the
+     block's memory thread as the JAX package's block runtime wires it
+     (`block.memory_thread`): main_vm, the decommit sorter, the code
+     unpacker, the keccak, sha256 and ecrecover circuits each continuing the
+     memory queue, ram_permutation over the union; and eip_4844 at 16
+     elements; on the card and on the CPU: every residual and compact form
+     equal, all true, every handoff true, every precompile output the host's;
+ 17. memory thread, full width: the same program for 2^16 cycles (codes of
+     2^9 + 1 words), the unpacker and sha256 in instances of 2^10 rounds,
+     keccak of 2^9 blocks, ecrecover one instance, ram of 2^16 rows: all
+     residuals and handoffs (`memory_thread_closes`: ram's unsorted tail is
+     the ecrecover circuit's last memory state) true, every keccak, sha256 and
+     ecrecover output the host's; witness, evaluation and compact-form seconds
+     per circuit, the counts against their targets, the Poseidon2 launches,
+     peak device memory; five negative probes (a sha256 round's state word, a
+     keccak digest byte, a keccak instance's FSM boundary, an unpacked code
+     word, an ecrecover ladder limb) failing where the JAX package fails
+     (tests/test_torch_{sha256_circuits,keccak_round,ecrecover}.py);
+ 18. eip_4844: two blobs of 4,096 seeded elements, witness, evaluation and
+     compact-form seconds, all true, both hashes equal to a host
+     recomputation; a changed coefficient fails where the JAX package fails.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -91,6 +122,7 @@ its bound, its launches on each path), the nvidia-smi line, and as the last line
 a CUDA card the script stops before printing any result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -112,14 +144,35 @@ LOG2_LOGUP_ROWS = 16
 LOG2_LOGUP_REF_ROWS = 8
 RAM_CIRCUIT_TYPE = 8  # ram_permutation in the block runtime's numbering
 LOG2_LOG_PATH_CYCLES = 16
-LOG_PATH_ITERATIONS = 1450  # about 44 cycles each: the bootloader returns before 2^16
+LOG_PATH_ITERATIONS = 1440  # about 45 cycles each: the bootloader returns before 2^16
 LOG2_LOG_LIMIT = 12
-LOG_PATH_SMALL_ITERATIONS = 18  # iteration 16 sends an L1 message, iteration 8 reverts
+LOG_PATH_SMALL_ITERATIONS = 18  # even iterations send an L1 message, iteration 8 reverts
+L1_CADENCE = 2  # an L1 message every 2nd iteration
 LOG_PATH_SMALL_CYCLES = 1024
 LOG_PATH_SMALL_LIMIT = 16
 LOG_CALLEE_BASE = 0x9000  # the four callees' kernel-space addresses
 LOG2_LOG_SORTER_ROWS = 18
 LOG2_LOG_SORTER_LIMIT = 16
+LOG2_MEM_CYCLES = 16
+MEM_ITERATIONS = 1650  # about 39 cycles each: the bootloader returns before 2^16
+LOG2_CALLEE_CODE_WORDS = 9  # callee bytecodes of 2^9 + 1 words, a typical deployed contract
+MEM_CALLEE_BASE = 0xA000  # the eight workers' kernel-space addresses
+# the bootloader heap of the memory program, in words: the loop counter at 0,
+# 2^10 random words of keccak payload, four pre-padded sha256 messages of each
+# of 1..8 blocks, the signatures, four output words an iteration
+MEM_DATA_WORD = 16
+MEM_DATA_WORDS = 1 << 10
+MEM_SHA_WORD = MEM_DATA_WORD + MEM_DATA_WORDS
+MEM_SIG_WORD = MEM_SHA_WORD + 288
+MEM_OUT_WORD = 1 << 13
+KECCAK_LENGTHS = (64, 272, 136, 64, 544, 64, 408, 272)  # a worker's payload bytes
+# instance sizes: unpacker and sha256 rounds, keccak blocks, decommit sorter rows, ram rows
+MEM_LIMITS = (1 << 10, 1 << 9, 1 << 12, 1 << 16)
+MEM_SMALL_ITERATIONS = 16  # iterations 8 and 16 recover a signer
+MEM_SMALL_CYCLES = 1024
+MEM_SMALL_LOG2_CODE_WORDS = 5
+MEM_SMALL_LIMITS = (16, 4, 16, 256)
+MEM_SMALL_BLOB = 16
 PROBE_SLOT = 5
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
@@ -911,9 +964,11 @@ def log_program(iterations):
     callee in r3 (a system call keeps r3..r11); the callee writes two storage
     cells over 2^10 keys of its own address (2^12 cells over the four, so
     writes repeat), reads one of them and the cell it wrote four iterations
-    before, emits four events, an L1 message on every 16th iteration, and
-    reverts on every 8th call ((i + (i >> 4)) & 7 == 0, so that 1 in 8 of the
-    L1 messages is rolled back too).  About 44 cycles an iteration.  Returns (code words, EraVM keyword arguments)."""
+    before, emits four events, an L1 message on every L1_CADENCE-th iteration
+    (every 2nd: the L1 target of 2^9 messages in 2^16 cycles), and reverts on
+    every 8th call ((i + (i >> 4)) & 7 == 0, so that 1 in 8 of the L1
+    messages is rolled back too).  About 45 cycles an iteration.  Returns
+    (code words, EraVM keyword arguments)."""
     from zkevm_circuits_tpu_torch.isa import opcodes as isa
     from zkevm_circuits_tpu_torch.isa import system_params as sp
     from zkevm_circuits_tpu_torch.models import vm
@@ -971,7 +1026,7 @@ def log_program(iterations):
             log(isa.LOG_EVENT, 11, 3),
         ]
         skip = len(prog) + 3
-        prog += [andi(15, 3, 9, set_flags),
+        prog += [andi(L1_CADENCE - 1, 3, 9, set_flags),
                  enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=skip, condition=isa.COND_NE),
                  log(isa.LOG_TO_L1_MESSAGE, 4, 3)]
         revert = len(prog) + 3
@@ -1006,177 +1061,13 @@ def log_program(iterations):
     return words(prog), dict(storage=storage, code_store=code_store)
 
 
-def block_rows(v):
-    """What the block runtime hands each circuit from one EraVM run
-    (runtime/block2.py:257-470 of the JAX package): the decommit requests
-    (the boot push, then the tape) sorted by (hash, timestamp), the log tape,
-    the storage logs sorted by (address, key, cycle index) with those
-    indices, and the event and L1-message logs sorted by (timestamp,
-    rollback)."""
-    from zkevm_circuits_tpu_torch.isa import system_params as sp
-
-    dec = [dict(r) for r in v.initial_dec_rows] + [dict(r) for r in v.decommit_tape]
-    logs = [dict(q) for q in v.log_tape]
-    storages = [r for r in logs if r["aux_byte"] == sp.STORAGE_AUX_BYTE]
-    order = sorted(range(len(storages)),
-                   key=lambda i: (storages[i]["address"], storages[i]["key"], i))
-    rows = dict(dec=dec, dec_sorted=sorted(dec, key=lambda r: (r["code_hash"], r["timestamp"])),
-                logs=logs, storage=storages, storage_sorted=[storages[i] for i in order],
-                storage_ts=order)
-    for name, aux in (("events", sp.EVENT_AUX_BYTE), ("l1_messages", sp.L1_MESSAGE_AUX_BYTE)):
-        rows[name] = [r for r in logs if r["aux_byte"] == aux]
-        rows[name + "_sorted"] = sorted(rows[name], key=lambda r: (r["timestamp"], bool(r["rollback"])))
-    return rows
-
-
-def _next_pow2(n):
-    return 1 << max(0, (n - 1).bit_length())
-
-
-def _rows(soa, mask):
-    """rows of a query batch where `mask` holds, as dicts of python ints (the
-    block runtime's `_soa_rows`)."""
-    import dataclasses
-
-    keep = np.flatnonzero(mask.cpu().numpy())
-    cols = {f.name: getattr(soa, f.name).cpu().numpy()[keep] for f in dataclasses.fields(soa)}
-    rows = []
-    for i in range(len(keep)):
-        row = {}
-        for name, col in cols.items():
-            v = col[i]
-            row[name] = (sum(int(x) << (32 * k) for k, x in enumerate(v)) if v.ndim
-                         else bool(v) if col.dtype == np.bool_ else int(v))
-        rows.append(row)
-    return rows
-
-
-def _tails_equal(a, b):
-    from zkevm_circuits_tpu_torch.ops import queues
-
-    return bool(queues.queue_states_equal(a, b))
-
-
-def _stage(times, name, fn):
-    """fn() once, or, with `times`, twice (first and steady seconds, each ended
-    by a synchronize); returns the last result."""
-    if times is None:
-        return fn()
-    seconds = []
-    for _ in range(2):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    times[name] = seconds
-    return out
-
-
-def log_path(v, w, limits, device, times=None):
-    """The block's log and decommit queues after one VM run, as the JAX
-    package's block runtime wires them (runtime/block2.py:214-470): `v` the
-    EraVM after `run()`, `w` its witness dict, `limits` the instance limits
-    (vm, sorter), `device` where the circuits run.  Returns (results: circuit
-    -> (witness, residuals, compact forms), handoffs, the L1 digest, the host
-    keccak of the survivors, counts)."""
-    from zkevm_circuits_tpu_torch.base_structures.decommit_query import DecommitQueries
-    from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
-    from zkevm_circuits_tpu_torch.models import demux_log_queue as dm
-    from zkevm_circuits_tpu_torch.models import linear_hasher as lh
-    from zkevm_circuits_tpu_torch.models import log_sorter as ls
-    from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
-    from zkevm_circuits_tpu_torch.models import storage_validity as sv
-    from zkevm_circuits_tpu_torch.models import vm
-    from zkevm_circuits_tpu_torch.ops import gf, keccak
-    from zkevm_circuits_tpu_torch.ops.queues import QueueState
-
-    vm_limit, sorter_limit = limits
-    out, handoffs = {}, {}
-    cycles = len(w["ts"]) - 1
-    dw = vm.prepare_device_witness(w, device=device)
-    res = _stage(times, "main_vm eval", lambda: vm.eval_constraints(dw, cycles))
-    forms, proto = _stage(times, "main_vm compact",
-                          lambda: vm.vm_instance_compact_forms(dw, vm_limit))
-    out["main_vm"] = (dw, dict(res, **{"protocol_" + k: x for k, x in proto.items()}), forms)
-    zeros4 = gf.zeros((4,), dw["ts"].device)
-
-    def circuit(name, gen, evaluate, compact):
-        wit = _stage(times, f"{name} witness", gen)
-        res = _stage(times, f"{name} eval", lambda: evaluate(wit))
-        out[name] = (wit, res, _stage(times, f"{name} compact", lambda: compact(wit)))
-        return wit
-
-    rows = block_rows(v)
-    ccfg = sd.DecommitSorterConfig(limit=sorter_limit)
-    cw = circuit("sort_decommittments",
-                 lambda: sd.generate_witness(DecommitQueries.from_lists(rows["dec"], device),
-                                             DecommitQueries.from_lists(rows["dec_sorted"], device),
-                                             ccfg),
-                 lambda x: sd.eval_constraints(x, ccfg), lambda x: sd.instance_compact_forms(x, ccfg))
-    handoffs["vm_to_decommit_sorter"] = bool(
-        (cw.chain_unsorted[cw.n] == dw["dec_q_state"][-1]).all()) and cw.n == int(w["dec_q_len"][-1])
-
-    # type 4: demux of the whole log tape, one instance
-    dcfg = dm.DemuxConfig(limit=_next_pow2(len(rows["logs"])))
-    dmw = circuit("demux_log_queue",
-                  lambda: dm.generate_witness(LogQueries.from_lists(rows["logs"], device), dcfg),
-                  lambda x: dm.eval_constraints(x, dcfg), lambda x: dm.instance_compact_form(x, dcfg))
-    handoffs["vm_to_demux"] = _tails_equal(
-        QueueState(zeros4, dmw.input_chain[dmw.n], dmw.n),
-        QueueState(zeros4, dw["log_fwd_tail"][-1], dw["log_fwd_len"][-1]))
-    out_states = dm.output_queue_states(dmw)
-
-    # type 9, then types 11 / 12
-    vcfg = sv.StorageValidityConfig(limit=sorter_limit)
-    svw = circuit("storage_validity",
-                  lambda: sv.generate_witness(
-                      LogQueries.from_lists(rows["storage"], device),
-                      LogQueries.from_lists(rows["storage_sorted"], device), rows["storage_ts"],
-                      vcfg),
-                  lambda x: sv.eval_constraints(x, vcfg), lambda x: sv.instance_compact_forms(x, vcfg))
-    handoffs["demux_to_storage_sorter"] = _tails_equal(
-        QueueState(zeros4, svw.chain_unsorted[svw.execute.shape[0]], svw.n),
-        out_states["rollup_storage"])
-    scfg = ls.LogSorterConfig(limit=sorter_limit)
-    for ctype, qname in ((11, "events"), (12, "l1_messages")):
-        sw = circuit(f"log_sorter_{ctype}",
-                     lambda: ls.generate_witness(LogQueries.from_lists(rows[qname], device),
-                                                 LogQueries.from_lists(rows[qname + "_sorted"], device),
-                                                 scfg),
-                     lambda x: ls.eval_constraints(x, scfg),
-                     lambda x: ls.instance_compact_forms(x, scfg))
-        handoffs[f"demux_to_sorter_{ctype}"] = _tails_equal(
-            QueueState(zeros4, sw.chain_unsorted[sw.execute.shape[0]], sw.n), out_states[qname])
-
-    # type 13: the L1 sorter's survivors, one instance
-    lw = out["log_sorter_12"][0]
-    total = lw.execute.shape[0]
-    survivors = _rows(lw.result_items, lw.result_add)
-    hcfg = lh.LinearHasherConfig(limit=_next_pow2(max(1, len(survivors))))
-    hw = circuit("linear_hasher",
-                 lambda: lh.generate_witness(LogQueries.from_lists(survivors, device), hcfg),
-                 lambda x: lh.eval_constraints(x, hcfg), lambda x: lh.instance_compact_form(x, hcfg))
-    handoffs["l1_sorter_to_hasher"] = _tails_equal(
-        QueueState(zeros4, hw.input_chain[hw.execute.shape[0]], hw.n),
-        QueueState(zeros4, lw.result_chain[total + 1], lw.result_count[total]))
-    digest = bytes(hw.digest.cpu().tolist())
-    expected = keccak.keccak256_ref(b"".join(lh.serialize_l2_l1_ref(r) for r in survivors))
-    counts = {name: len(rows[name]) for name in ("logs", "storage", "events", "l1_messages")}
-    counts.update(rollbacks=sum(bool(r["rollback"]) for r in rows["logs"]),
-                  decommits=len(rows["dec"]), l1_survivors=len(survivors))
-    return out, handoffs, digest, expected, counts
-
-
 def _bad(res):
     return [k for k, x in res.items() if not bool(x.all())]
 
 
 def _forms_equal(a, b):
-    import dataclasses
-
+    if a is None or b is None:
+        return a is b
     return all(bool((getattr(a, f.name).cpu() == getattr(b, f.name).cpu()).all())
                for f in dataclasses.fields(a))
 
@@ -1187,24 +1078,25 @@ def log_path_small(dev):
     on the card gives the same verdicts as on the CPU."""
     from zkevm_circuits_tpu_torch import entry
     from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.runtime import block
 
     words, kw = log_program(LOG_PATH_SMALL_ITERATIONS)
     v = vm.NativeEraVM(words, LOG_PATH_SMALL_CYCLES, **kw)
     w = v.run()
-    sides = [log_path(v, w, (LOG_PATH_SMALL_LIMIT, LOG_PATH_SMALL_LIMIT), d)
+    sides = [block.log_path(v, w, (LOG_PATH_SMALL_LIMIT, LOG_PATH_SMALL_LIMIT), d)
              for d in (None, torch.device("cpu"))]
     (card, card_h, card_d, want, counts), (cpu, cpu_h, cpu_d, _, _) = sides
+    # type 10 on storage_validity's survivors, on both
+    for (out, *_), d in zip(sides, (None, torch.device("cpu"))):
+        aw, ares, aform, survivors = block.storage_application(out["storage_validity"][0],
+                                                               kw["storage"], d)
+        out["storage_application"] = (aw, ares, aform)
+    root = bytes(np.asarray(card["storage_application"][0].roots[-1].cpu(), "<u4").tobytes())
+    if root != _replayed_root(kw["storage"], survivors):
+        _fail("log path small: the storage tree's final root is not the replayed root")
+    _same_results(card, cpu, "log path small")
     for name in cpu:
-        if list(card[name][1]) != list(cpu[name][1]):
-            _fail(f"log path small: {name} residual keys differ between the card and the CPU")
-        for k, x in card[name][1].items():
-            if not torch.equal(x.cpu(), cpu[name][1][k]):
-                _fail(f"log path small: {name} residual {k} on the card differs from the CPU's")
-        if not _forms_equal(card[name][2], cpu[name][2]):
-            _fail(f"log path small: {name} compact forms on the card differ from the CPU's")
-        if _bad(cpu[name][1]):
-            _fail(f"log path small: {name} residuals {_bad(cpu[name][1])} are false")
-        if name != "main_vm" and card[name][0].execute.device.type != dev.type:
+        if name != "main_vm" and _first_tensor(card[name][0]).device.type != dev.type:
             _fail(f"log path small: the {name} witness is not on the card")
     if card_h != cpu_h or not all(card_h.values()) or card_d != cpu_d or card_d != want:
         _fail(f"log path small: handoffs {card_h} / {cpu_h}, digests equal "
@@ -1215,8 +1107,10 @@ def log_path_small(dev):
     if dw["regs"].device.type != dev.type or not torch.equal(got.cpu(), ref) or not bool(got.all()):
         _fail("entry() on the card does not give the CPU's verdicts, all true")
     print(f"log path small: {LOG_PATH_SMALL_CYCLES} cycles, instances of {LOG_PATH_SMALL_LIMIT}, "
-          f"{counts}: {len(cpu)} circuits' residuals and compact forms on the card == on the CPU, "
-          f"all true; handoffs {sorted(card_h)} true; L1 digest == host keccak; entry() on the "
+          f"{counts}: {len(cpu)} circuits' residuals and compact forms on the card == on the CPU "
+          f"(storage application over {len(survivors)} queries included), all true; handoffs "
+          f"{sorted(card_h)} true; L1 digest == host keccak; the storage tree's final root == the "
+          f"replayed root; entry() on the "
           f"card == on the CPU ({got.shape[0]} verdicts, all true)", flush=True)
 
 
@@ -1343,9 +1237,12 @@ def probe_vm_boundary(dw, forms, limit):
 
 def log_path_full(dev, card):
     """Phase (a): the log-heavy program for 2^16 cycles through the native
-    EraVM, then the block's log and decommit queues on the card."""
+    EraVM, then the block's log and decommit queues on the card, and the
+    storage tree (type 10) on storage_validity's survivors."""
+    from zkevm_circuits_tpu_torch.models import storage_application as sa
     from zkevm_circuits_tpu_torch.models import vm
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.runtime import block
 
     n = 1 << LOG2_LOG_PATH_CYCLES
     words, kw = log_program(LOG_PATH_ITERATIONS)
@@ -1359,11 +1256,18 @@ def log_path_full(dev, card):
     torch.cuda.reset_peak_memory_stats()
     KERNEL.reset_counts()
     t0 = time.perf_counter()
-    out, handoffs, digest, want, counts = log_path(v, w, limits, None, times)
+    out, handoffs, digest, want, counts = block.log_path(v, w, limits, None, times)
+    # type 10 on storage_validity's survivors
+    aw, ares, aform, survivors = block.storage_application(
+        out["storage_validity"][0], kw["storage"], None, times)
+    out["storage_application"] = (aw, ares, aform)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = KERNEL.counts()
     peak = torch.cuda.max_memory_allocated()
+    root = bytes(np.asarray(aw.roots[-1].cpu(), "<u4").tobytes())
+    if root != _replayed_root(kw["storage"], survivors):
+        _fail("storage application: the final root is not the replayed root")
     bad = {name: _bad(res) for name, (_, res, _) in out.items() if _bad(res)}
     if bad:
         _fail(f"log path at 2^{LOG2_LOG_PATH_CYCLES} cycles: residuals {bad} are false")
@@ -1377,7 +1281,8 @@ def log_path_full(dev, card):
             _fail(f"the log path launched the {name} kernel no time")
     short = [k for k, need in (("storage", 1 << 13), ("events", 1 << 12), ("l1_messages", 1 << 9),
                                ("decommits", 1 << 10)) if counts[k] < need]
-    rows = {name: int(x[0].execute.shape[0]) for name, x in out.items() if name != "main_vm"}
+    rows = {name: int(x[0].execute.shape[0]) for name, x in out.items()
+            if name not in ("main_vm", "storage_application")}
     print(f"log path: host sim 2^{LOG2_LOG_PATH_CYCLES} cycles {sim_s:.3f} s; counts {counts} "
           f"(below the targets: {short or 'none'}); rows a circuit {rows}; instances of "
           f"2^{LOG2_LOG_LIMIT}; seconds first / steady "
@@ -1386,7 +1291,18 @@ def log_path_full(dev, card):
           f"true; L1 digest {digest.hex()[:16]}.. == host keccak over {counts['l1_survivors']} "
           f"survivors; Poseidon2 launches over the path {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB [{card}]", flush=True)
+    print(f"storage application: {len(survivors)} queries, {int(aw.row_execute.sum())} stage rows "
+          f"of {aw.row_execute.shape[0]}; witness seconds {times['storage_application witness']} "
+          f"of which the tree {times['storage_application tree']}; eval first / steady "
+          f"{times['storage_application eval']}; compact form "
+          f"{times['storage_application compact']} (its commitment "
+          f"{aform.commitment()[0].tolist()}); final root == the replayed root (a plain "
+          f"recursion over the snapshot's and the survivors' leaves) [{card}]", flush=True)
     log_probes(out, limits)
+    forged, want = probe_storage_sibling(aw)
+    got = _expect(sa.eval_constraints(forged, sa.StorageApplicationConfig(aw.row_execute.shape[0])),
+                  want, "storage path sibling")
+    print(f"storage application negative probe: a changed path sibling fails {got}", flush=True)
     return launches
 
 
@@ -1485,6 +1401,589 @@ def log_sorter_full(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the block's memory thread (runtime/block2.py:257-381 of the JAX package): a
+# precompile-heavy EraVM run, then the decommit sorter, the code unpacker,
+# the keccak, sha256 and ecrecover circuits, each continuing the global
+# memory queue, and ram_permutation over the union of their memory traffic
+# ---------------------------------------------------------------------------
+
+
+def _pad_code(words, n_words, constants=()):
+    """a bytecode padded with zero words to `n_words` (odd), `constants`
+    (index, value) placed in the padding, where SRC_CODE operands read them."""
+    if len(words) > n_words - len(constants) or n_words % 2 == 0:
+        raise ValueError(f"{len(words)} code words do not fit {n_words}")
+    out = list(words) + [0] * (n_words - len(words))
+    for idx, value in constants:
+        if idx < len(words):
+            raise ValueError(f"constant {idx} overlaps the code")
+        out[idx] = value
+    return out
+
+
+def _mem_key(in_off=0, length=0, out_off=0, page=0, rounds=0):
+    """a precompile ABI key: limbs [0] input offset, [1] input length, [2]
+    output offset, [4] input page, [5] output page, [6] sha256 rounds."""
+    return in_off | length << 32 | out_off << 64 | page << 128 | page << 160 | rounds << 192
+
+
+def _sha_padded(message):
+    """a message with sha256's padding, the input a pre-padded sha256 call takes."""
+    bitlen = len(message) * 8
+    padded = message + b"\x80" + b"\x00" * ((55 - len(message)) % 64)
+    return padded + bitlen.to_bytes(8, "big")
+
+
+def memory_program(iterations, seed=0, log2_code_words=LOG2_CALLEE_CODE_WORDS):
+    """A bootloader loop of `iterations` far calls into one of eight worker
+    callees (iteration i: worker i & 7, each from the code store, its code
+    padded to 2^9 + 1 words, so that the unpacker has 257 rounds a worker);
+    worker c keccak-hashes KECCAK_LENGTHS[c] bytes (64 bytes, the
+    mapping-slot hash, up to 4 x 136) at an unaligned offset of a 2^10-word
+    random region of the bootloader heap, sha256-hashes one of four
+    pre-padded messages of c + 1 blocks, and worker 0 (every 8th iteration)
+    recovers the signer of the next of the heap's signatures, one in 16 of
+    them invalid (a high s, an x off the curve, r = 0).  A precompile call
+    comes from the contract at its formal address: each worker far-calls the
+    three precompile contracts (padded as well) with the call's ABI key in
+    r3; every digest lands in an output region of the bootloader heap.  The
+    bootloader keeps its loop counter in heap word 0, the workers take their
+    256-bit constants from their own code page (SRC_CODE operands).  About
+    39 cycles an iteration.
+
+    `log2_code_words` sets the padding (2^9 on the card; the CPU tests take
+    less).  Returns (code words, EraVM keyword arguments, host) where host
+    holds what the program laid out: the heap as {word: value}, the
+    signatures as (h, v, r, s) and the sha256 messages by their first word."""
+    from zkevm_circuits_tpu_torch.isa import opcodes as isa
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+    from zkevm_circuits_tpu_torch.models import code_unpacker_sha256 as cu
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops import secp256k1 as ec
+
+    enc = isa.encode_instruction
+    set_flags = 1 << isa.SET_FLAGS_FLAG_IDX
+    swap = 1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES
+    page = sp.BOOTLOADER_HEAP_PAGE
+    n_words = (1 << log2_code_words) + 1
+    abi_slot, key_slot = n_words - 2, n_words - 3  # constants in the padding
+
+    def imm(v, dst):
+        return enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=v, src1=0, dst0=dst)
+
+    def addi(v, src, dst):
+        return enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=v, src1=src, dst0=dst)
+
+    def andi(v, src, dst):
+        return enc(isa.BINOP, isa.BINOP_AND, src_mode=isa.SRC_IMM, imm0=v, src1=src, dst0=dst)
+
+    def code(slot, dst, src1=0):  # dst = code[slot] + src1
+        return enc(isa.ADD, src_mode=isa.SRC_CODE, imm0=slot, src1=src1, dst0=dst)
+
+    def shift(variant, src, amount_reg, dst):
+        return enc(isa.SHIFT, variant, src0=src, src1=amount_reg, dst0=dst)
+
+    def heap_read(dst):  # heap word 0
+        return enc(isa.UMA, isa.UMA_HEAP_READ, src0=0, dst0=dst)
+
+    def far_call(address, cont):
+        return [imm(address, 4), enc(isa.FAR_CALL, isa.FAR_CALL_NORMAL, src0=1, src1=4, imm0=cont)]
+
+    # the ABI of every far call: a system call (r3..r11 reach the callee) with 2^20 ergs
+    abi = (1 << 248) | (1 << (192 + 20))
+    # out words: 4 an iteration, keccak +0, sha256 +1, ecrecover +2 and +3
+    out_base = MEM_OUT_WORD
+
+    def worker(c):
+        rounds = c + 1
+        sha_base = MEM_SHA_WORD + 4 * rounds * (rounds - 1)  # four variants of 2R words
+        consts = [(abi_slot, abi),
+                  (key_slot, _mem_key(MEM_DATA_WORD * 32, KECCAK_LENGTHS[c], out_base, page)),
+                  (key_slot - 1, _mem_key(sha_base, 0, out_base + 1, page, rounds)),
+                  (key_slot - 2, _mem_key(MEM_SIG_WORD, 0, out_base + 2, page))]
+        prog = [enc(isa.UMA, isa.UMA_HEAP_WRITE, src0=0, src1=3),  # keep i in heap word 0
+                imm(66, 6)]
+        # r7 = i << 66: the output word offset 4i, in limb 2
+        prog += [shift(isa.SHIFT_SHL, 3, 6, 7)]
+        # keccak: byte offset (41 i) & 0x3FFF into the data region
+        prog += [enc(isa.MUL, src_mode=isa.SRC_IMM, imm0=41, src1=3, dst0=10, dst1=11),
+                 andi(0x3FFF, 10, 10), code(key_slot, 10, 10),
+                 enc(isa.ADD, src0=10, src1=7, dst0=3), code(abi_slot, 1)]
+        prog += far_call(sp.KECCAK256_PRECOMPILE_FORMAL_ADDRESS, len(prog) + 2)
+        # sha256: message variant (i >> 3) & 3, 2R words each
+        prog += [heap_read(3), imm(3, 6), shift(isa.SHIFT_SHR, 3, 6, 10), andi(3, 10, 10),
+                 enc(isa.MUL, src_mode=isa.SRC_IMM, imm0=2 * rounds, src1=10, dst0=10, dst1=11),
+                 imm(66, 6), shift(isa.SHIFT_SHL, 3, 6, 7), code(key_slot - 1, 10, 10),
+                 enc(isa.ADD, src0=10, src1=7, dst0=3), code(abi_slot, 1)]
+        prog += far_call(sp.SHA256_PRECOMPILE_FORMAL_ADDRESS, len(prog) + 2)
+        if c == 0:
+            # ecrecover: signature i >> 3, 4 words each
+            prog += [heap_read(3), imm(1, 6), shift(isa.SHIFT_SHR, 3, 6, 10),
+                     andi(0xFFFC, 10, 10), imm(66, 6), shift(isa.SHIFT_SHL, 3, 6, 7),
+                     code(key_slot - 2, 10, 10), enc(isa.ADD, src0=10, src1=7, dst0=3),
+                     code(abi_slot, 1)]
+            prog += far_call(sp.ECRECOVER_PRECOMPILE_FORMAL_ADDRESS, len(prog) + 2)
+        prog += [enc(isa.RET, isa.RET_OK)]
+        return _pad_code(vm.assemble_code_words(prog), n_words, consts)
+
+    precompile = [enc(isa.LOG, isa.LOG_PRECOMPILE_CALL, src0=3, src1=0), enc(isa.RET, isa.RET_OK)]
+    storage, code_store = {}, {}
+
+    def deploy(address, words):
+        code_hash = cu.make_request(words, 0, 0)["code_hash"]
+        storage[(0, sp.DEPLOYER_SYSTEM_CONTRACT_ADDRESS, address)] = code_hash
+        code_store[code_hash] = words
+
+    for c in range(8):
+        deploy(MEM_CALLEE_BASE + c, worker(c))
+    for k, address in enumerate((sp.KECCAK256_PRECOMPILE_FORMAL_ADDRESS,
+                                 sp.SHA256_PRECOMPILE_FORMAL_ADDRESS,
+                                 sp.ECRECOVER_PRECOMPILE_FORMAL_ADDRESS)):
+        deploy(address, _pad_code(vm.assemble_code_words(precompile), n_words, [(n_words - 1, k)]))
+
+    boot_abi_slot = n_words - 2
+    cont = 7
+    boot = [heap_read(3), addi(1, 3, 3), enc(isa.UMA, isa.UMA_HEAP_WRITE, src0=0, src1=3),
+            andi(7, 3, 4), addi(MEM_CALLEE_BASE, 4, 4), code(boot_abi_slot, 1),
+            enc(isa.FAR_CALL, isa.FAR_CALL_NORMAL, src0=1, src1=4, imm0=cont),
+            heap_read(3),
+            enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=iterations, src1=3, dst0=5,
+                flags=set_flags | swap),
+            enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=0, condition=isa.COND_NE),
+            enc(isa.RET, isa.RET_OK)]
+    boot_words = _pad_code(vm.assemble_code_words(boot), n_words, [(boot_abi_slot, abi)])
+
+    # the bootloader heap: random data, the pre-padded sha256 messages, the signatures
+    rng = np.random.default_rng(seed)
+    heap = {MEM_DATA_WORD + k: int.from_bytes(rng.bytes(32), "big") for k in range(MEM_DATA_WORDS)}
+    sha_messages = {}
+    for rounds in range(1, 9):
+        for variant in range(4):
+            msg = rng.bytes(64 * rounds - 9 - variant)
+            padded = _sha_padded(msg)
+            base = MEM_SHA_WORD + 4 * rounds * (rounds - 1) + 2 * rounds * variant
+            sha_messages[base] = msg
+            for j in range(2 * rounds):
+                heap[base + j] = int.from_bytes(padded[32 * j: 32 * j + 32], "big")
+    sigs = []
+    for k in range(iterations // 8 + 2):
+        h = int.from_bytes(rng.bytes(32), "big")
+        r, s, recid = ec.sign(h, int(rng.integers(1, 1 << 62)), int(rng.integers(1, 1 << 62)))
+        if k % 16 == 15:  # one in 16 fails: a high s, an x off the curve, r = 0
+            kind = (k // 16) % 3
+            if kind == 0:
+                s, recid = ec.N - s, recid ^ 1
+            elif kind == 1:
+                while ec.lift_x(r, False) is not None:
+                    r += 1
+            else:
+                r = 0
+        sigs.append((h, recid, r, s))
+        for j, value in enumerate(sigs[-1]):
+            heap[MEM_SIG_WORD + 4 * k + j] = value
+    return (boot_words, dict(storage=storage, code_store=code_store, bootloader_heap=heap),
+            dict(heap=heap, sigs=sigs, sha_messages=sha_messages))
+
+
+def precompile_outputs(out, host):
+    """Every keccak, sha256 and ecrecover output word of the memory thread
+    against the host's `keccak256_ref`, `sha256_ref` and `secp256k1.recover`
+    (low s only, the circuit's convention) on the payload the program laid
+    out; returns the number of outputs checked, or fails."""
+    from zkevm_circuits_tpu_torch.ops import secp256k1 as ec
+    from zkevm_circuits_tpu_torch.ops.keccak import keccak256_ref
+    from zkevm_circuits_tpu_torch.ops.sha256 import sha256_ref
+
+    def value(limbs):
+        return sum(int(x) << (32 * k) for k, x in enumerate(limbs.tolist()))
+
+    def limbs(call):
+        key = int(call["key"])
+        return [(key >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+
+    heap, sigs, sha_messages = host["heap"], host["sigs"], host["sha_messages"]
+    checked = 0
+    if "keccak256" in out:
+        w = out["keccak256"][0]
+        for ci in range(w.num_calls):
+            off, length = limbs(_row(w.calls, ci))[:2]
+            data = b"".join(heap.get(i, 0).to_bytes(32, "big")
+                            for i in range(off // 32, (off + max(length, 1) - 1) // 32 + 1))
+            want = keccak256_ref(data[off % 32: off % 32 + length])
+            if value(w.writes.value[ci]) != int.from_bytes(want, "big"):
+                _fail(f"keccak call {ci}: the circuit's digest is not the host keccak")
+            checked += 1
+    if "sha256" in out:
+        w = out["sha256"][0]
+        for ci in range(w.num_calls):
+            digest = sha256_ref(sha_messages[limbs(_row(w.calls, ci))[0]])
+            want = sum(int.from_bytes(digest[4 * k: 4 * k + 4], "little") << (32 * (7 - k))
+                       for k in range(8))
+            if value(w.writes.value[ci]) != want:
+                _fail(f"sha256 call {ci}: the circuit's digest is not the host sha256")
+            checked += 1
+    if "ecrecover" in out:
+        w = out["ecrecover"][0]
+        for ci in range(w.num_calls):
+            h, v, r, s = sigs[(limbs(_row(w.calls, ci))[0] - MEM_SIG_WORD) // 4]
+            q = ec.recover(h, r, s, v & 0xFF) if s < (ec.N - 1) // 2 else None
+            want = (1, ec.eth_address(q)) if q is not None else (0, 0)
+            got = (value(w.writes.value[2 * ci]), value(w.writes.value[2 * ci + 1]))
+            if got != want:
+                _fail(f"ecrecover call {ci}: the circuit writes {got}, the host recovers {want}")
+            checked += 2
+    return checked
+
+
+def _row(q, i):
+    """row i of a query batch as a dict of python ints."""
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    return block.soa_rows(q[i: i + 1], torch.ones(1, dtype=torch.bool))[0]
+
+
+# ---------------------------------------------------------------------------
+# storage application (runtime/block2.py:405-431): the storage tree after
+# the log path's storage_validity
+# ---------------------------------------------------------------------------
+
+
+def _replayed_root(storage, survivors):
+    """The root of the tree the survivors leave, computed apart from the
+    port's tree: the leaves (the snapshot's nonzero rollup cells, indices from
+    1 in key order, then each write of a fresh cell the next index, a write of
+    a known cell keeping its index), hashed with hashlib's blake2s by a plain
+    recursion over the leaf positions, with no node cache."""
+    import hashlib
+
+    def h(data):
+        return hashlib.blake2s(data).digest()
+
+    def position(address, key):  # path bit i of the derived key is bit i here
+        return int.from_bytes(h(b"\x00" * 12 + address.to_bytes(20, "big")
+                                + key.to_bytes(32, "big")), "little")
+
+    leaves = {}
+    for (shard, address, key), value in sorted(storage.items()):
+        if shard == 0 and value != 0:
+            leaves[position(address, key)] = (len(leaves) + 1, value)
+    counter = len(leaves) + 1
+    for q in survivors:
+        if q["rw_flag"]:
+            p = position(q["address"], q["key"])
+            if p in leaves:
+                leaves[p] = (leaves[p][0], q["written_value"])
+            else:
+                leaves[p] = (counter, q["written_value"])
+                counter += 1
+    empty = [h(bytes(40))]  # the leaf of index 0, value 0
+    for _ in range(256):
+        empty.append(h(empty[-1] + empty[-1]))
+
+    def node(level, items):  # items: (position, leaf hash) under this node
+        if not items:
+            return empty[level]
+        if level == 0:
+            return items[0][1]
+        left = [x for x in items if not x[0] >> (level - 1) & 1]
+        right = [x for x in items if x[0] >> (level - 1) & 1]
+        return h(node(level - 1, left) + node(level - 1, right))
+
+    return node(256, [(p, h(i.to_bytes(8, "big") + v.to_bytes(32, "big")))
+                      for p, (i, v) in leaves.items()])
+
+
+def probe_storage_sibling(w):
+    """one limb of a sibling at level 10 of the path of a read stage whose
+    write stage follows: that level of the read row fails its parent, and the
+    write row no longer carries the read row's path"""
+    s = w.row_is_write_stage.cpu().numpy()
+    row = int(np.flatnonzero(s)[0]) - 1
+    path = w.row_path.clone()
+    path[row, 10, 0] ^= 1
+    return dataclasses.replace(w, row_path=path), {"merkle_path": [row], "write_same_path": [row + 1]}
+
+
+# ---------------------------------------------------------------------------
+# eip_4844 (runtime/block2.py:470-493, models/eip_4844.py:31): two blobs
+# ---------------------------------------------------------------------------
+
+
+def blob_inputs(elements, seed):
+    """`elements` seeded random 31-byte chunks and a versioned hash."""
+    rng = np.random.default_rng(seed)
+    return [rng.bytes(31) for _ in range(elements)], rng.bytes(32)
+
+
+def blob_host(chunks, versioned_hash):
+    """(linear hash, output hash) recomputed on the host: keccak of the blob,
+    z from keccak(linear hash || versioned hash), Horner over the chunks
+    (highest degree first) mod the BLS12-381 scalar field."""
+    from zkevm_circuits_tpu_torch.models.eip_4844 import BLS_FR
+    from zkevm_circuits_tpu_torch.ops.keccak import keccak256_ref
+
+    linear = keccak256_ref(b"".join(chunks))
+    truncated = keccak256_ref(linear + versioned_hash)[16:]
+    z = int.from_bytes(truncated, "big")
+    y = 0
+    for i, c in enumerate(chunks):
+        y = (y + int.from_bytes(c, "little")) % BLS_FR
+        if i != len(chunks) - 1:
+            y = y * z % BLS_FR
+    return linear, keccak256_ref(versioned_hash + truncated + y.to_bytes(32, "big"))
+
+
+def probe_blob_coefficient(w):
+    """one limb of one coefficient: its chunk and its Horner addition fail"""
+    fe = w.fe.clone()
+    fe[5, 0] ^= 1
+    return dataclasses.replace(w, fe=fe), {"fe_from_chunks": [5], "horner_add": [5]}
+
+
+# --- the memory thread's negative probes (held on the CPU to the JAX
+# package's verdict by tests/test_torch_memory_thread.py)
+
+
+def probe_sha256_state(w):
+    """one word of the state after a round that is not its call's last: that
+    compression and the next round's continuity fail"""
+    ok = (w.round_execute & ~w.round_is_last).cpu().numpy()
+    row = int(np.flatnonzero(ok)[0])
+    after = w.state_after.clone()
+    after[row, 0] ^= 1
+    return dataclasses.replace(w, state_after=after), {
+        "compress_transitions": [row], "state_continuity": [row + 1]}
+
+
+def probe_keccak_digest(w):
+    """one byte of one call's digest: its last block's extraction and its
+    memory write fail"""
+    call = w.num_calls - 1
+    row = int(torch.nonzero(w.block_execute & w.block_is_last)[call])
+    dig = w.digests.clone()
+    dig[call, 0] ^= 1
+    return dataclasses.replace(w, digests=dig), {
+        "digest_extraction": [row], "write_value_is_digest": [call]}
+
+
+def probe_code_word(w):
+    """one limb of an unpacked code word: its block and its memory write fail"""
+    row = int(w.round_execute.sum()) // 2
+    word0 = w.word0.clone()
+    word0[row, 3] ^= 1
+    return dataclasses.replace(w, word0=word0), {"block_construction": [row], "write_word0": [row]}
+
+
+def probe_ecrecover_ladder(w):
+    """one limb of the accumulator after a step of the first running ladder
+    that adds: that addition and the next step's continuity fail"""
+    from zkevm_circuits_tpu_torch.models.ecrecover import BITS
+
+    st = w.steps
+    idx = torch.arange(w.step_execute.shape[0], device=w.step_execute.device)
+    adds = w.step_execute & (st["bit"] == 1) & (st["acc_inf"] == 0) & (idx % BITS < BITS - 1)
+    row = int(torch.nonzero(adds)[0])
+    steps = dict(st)
+    steps["acc_nx"] = st["acc_nx"].clone()
+    steps["acc_nx"][row, 0] ^= 1
+    return dataclasses.replace(w, steps=steps), {"add_steps": [row], "step_continuity": [row + 1]}
+
+
+def probe_keccak_boundary(w, cfg, limit):
+    """the hidden FSM input of keccak instance 2 commits to a boundary with a
+    changed state lane: the chaining fails between instances 1 and 2"""
+    from zkevm_circuits_tpu_torch.models import keccak256_round_function as kc
+    from zkevm_circuits_tpu_torch.utils import protocol
+
+    forms = kc.instance_compact_forms(w, cfg, limit)
+    lo = w.state_lo.clone()
+    lo[2 * limit, 0] ^= 1
+    forged = kc.instance_compact_forms(dataclasses.replace(w, state_lo=lo), cfg, limit)
+    fsm_in = forms.hidden_fsm_input_commitment.clone()
+    fsm_in[2] = forged.hidden_fsm_input_commitment[2]
+    chain = protocol.check_instance_chaining(forms.start_flag, forms.completion_flag, fsm_in,
+                                             forms.hidden_fsm_output_commitment)
+    return chain, {"fsm_handoff": [1]}
+
+
+def _first_tensor(wit):
+    return next(getattr(wit, f.name) for f in dataclasses.fields(wit)
+                if isinstance(getattr(wit, f.name), torch.Tensor))
+
+
+def _expect(res, want, what):
+    got = {k: torch.nonzero(~x.reshape(-1)).flatten().tolist()
+           for k, x in res.items() if not bool(x.all())}
+    if got != want:
+        _fail(f"probe {what}: expected {want} to fail, got {got}")
+    return got
+
+
+def memory_probes(out, limits):
+    """The five negative probes of the memory thread on its witnesses, each
+    failing exactly where the JAX package fails (tests/test_torch_memory_thread.py)."""
+    from zkevm_circuits_tpu_torch.models import code_unpacker_sha256 as cu
+    from zkevm_circuits_tpu_torch.models import ecrecover as ecr
+    from zkevm_circuits_tpu_torch.models import keccak256_round_function as kc
+    from zkevm_circuits_tpu_torch.models import sha256_round_function as sh
+
+    got = {}
+    w = out["sha256"][0]
+    forged, want = probe_sha256_state(w)
+    got["sha256 state word"] = _expect(sh.eval_constraints(
+        forged, sh.Sha256RoundFunctionConfig(w.round_execute.shape[0])), want, "sha256 state")
+    w = out["keccak256"][0]
+    cfg = kc.KeccakRoundFunctionConfig(w.block_execute.shape[0], w.reads.shape[0])
+    forged, want = probe_keccak_digest(w)
+    got["keccak digest byte"] = _expect(kc.eval_constraints(forged, cfg), want, "keccak digest")
+    chain, want = probe_keccak_boundary(w, cfg, limits[1])
+    got["keccak FSM boundary"] = _expect(chain, want, "keccak FSM boundary")
+    w = out["code_unpacker"][0]
+    forged, want = probe_code_word(w)
+    got["unpacked code word"] = _expect(cu.eval_constraints(
+        forged, cu.CodeUnpackerConfig(w.round_execute.shape[0])), want, "code word")
+    w = out["ecrecover"][0]
+    forged, want = probe_ecrecover_ladder(w)
+    got["ecrecover ladder limb"] = _expect(ecr.eval_constraints(
+        forged, ecr.EcrecoverConfig(w.call_execute.shape[0])), want, "ecrecover ladder")
+    return got
+
+
+def _same_results(card, cpu, what):
+    """every circuit's residuals and compact forms on the card equal the CPU's"""
+    for name in cpu:
+        if list(card[name][1]) != list(cpu[name][1]):
+            _fail(f"{what}: {name} residual keys differ between the card and the CPU")
+        for k, x in card[name][1].items():
+            if not torch.equal(x.cpu(), cpu[name][1][k]):
+                _fail(f"{what}: {name} residual {k} on the card differs from the CPU's")
+        if not _forms_equal(card[name][2], cpu[name][2]):
+            _fail(f"{what}: {name} compact forms on the card differ from the CPU's")
+        if _bad(cpu[name][1]):
+            _fail(f"{what}: {name} residuals {_bad(cpu[name][1])} are false")
+
+
+def memory_thread_small(dev):
+    """The memory thread and eip_4844 at small sizes on the card and on the
+    CPU: every residual and compact form equal, all true, every handoff
+    true, every precompile output the host's."""
+    from zkevm_circuits_tpu_torch.models import eip_4844 as e44
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    words, kw, host = memory_program(MEM_SMALL_ITERATIONS, 1, MEM_SMALL_LOG2_CODE_WORDS)
+    v = vm.NativeEraVM(words, MEM_SMALL_CYCLES, **kw)
+    w = v.run()
+    sides = [block.memory_thread(v, w, kw["code_store"], MEM_SMALL_LIMITS, d)
+             for d in (None, torch.device("cpu"))]
+    (card, card_h, counts), (cpu, cpu_h, _) = sides
+    _same_results(card, cpu, "memory thread small")
+    if card_h != cpu_h or not all(card_h.values()):
+        _fail(f"memory thread small: handoffs {card_h} / {cpu_h}")
+    for name in card:
+        wit = card[name][0]
+        lead = wit["ts"] if name == "main_vm" else _first_tensor(wit)
+        if lead.device.type != dev.type:
+            _fail(f"memory thread small: the {name} witness is not on the card")
+    checked = precompile_outputs(card, host)
+
+    chunks, vh = blob_inputs(MEM_SMALL_BLOB, 7)
+    cfg = e44.EIP4844Config(elements=MEM_SMALL_BLOB)
+    blobs = []
+    for d in (None, torch.device("cpu")):
+        bw = e44.generate_witness(chunks, vh, cfg, device=d)
+        blobs.append({"eip_4844": (bw, e44.eval_constraints(bw, cfg), e44.instance_compact_form(bw, cfg))})
+    _same_results(blobs[0], blobs[1], "eip_4844 small")
+    print(f"memory thread small: {MEM_SMALL_CYCLES} cycles, {counts}, instances of "
+          f"{MEM_SMALL_LIMITS}: {len(cpu)} circuits' residuals and compact forms on the card == "
+          f"on the CPU, all true; handoffs {sorted(card_h)} true; {checked} precompile outputs == "
+          f"the host's; eip_4844 ({MEM_SMALL_BLOB} elements) on the card == on the CPU, all "
+          f"true", flush=True)
+
+
+def memory_thread_full(dev, card):
+    """Phase (c): the precompile-heavy program for 2^16 cycles through the
+    native EraVM, then the memory thread on the card."""
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    n = 1 << LOG2_MEM_CYCLES
+    words, kw, host = memory_program(MEM_ITERATIONS)
+    t0 = time.perf_counter()
+    v = vm.NativeEraVM(words, n, **kw)
+    w = v.run()
+    sim_s = time.perf_counter() - t0
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    out, handoffs, counts = block.memory_thread(v, w, kw["code_store"], MEM_LIMITS, None, times)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = KERNEL.counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = {name: _bad(res) for name, (_, res, _) in out.items() if _bad(res)}
+    if bad:
+        _fail(f"memory thread at 2^{LOG2_MEM_CYCLES} cycles: residuals {bad} are false")
+    if not all(handoffs.values()):
+        _fail(f"memory thread: handoffs {handoffs}")
+    checked = precompile_outputs(out, host)
+    if launches["permutation"] + launches["permutation_small"] <= 0:
+        _fail("the memory thread launched no Poseidon2 kernel")
+    short = [k for k, need in (("keccak_blocks", 1 << 11), ("sha256_rounds", 1 << 11),
+                               ("unpacker_rounds", 1 << 11), ("ecrecover_calls", 1 << 6))
+             if counts.get(k, 0) < need]
+    print(f"memory thread: host sim 2^{LOG2_MEM_CYCLES} cycles {sim_s:.3f} s; counts {counts} "
+          f"(below the targets: {short or 'none'}); instances {MEM_LIMITS}; seconds first / steady "
+          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          + f"; the whole thread {path_s:.3f} s; all residuals true; handoffs {sorted(handoffs)} "
+          f"true; {checked} precompile outputs == the host's keccak256 / sha256 / recover; "
+          f"Poseidon2 launches over the thread {launches}; peak device memory "
+          f"{peak / 2**20:.1f} MiB [{card}]", flush=True)
+    got = memory_probes(out, MEM_LIMITS)
+    print("memory thread negative probes: " + "; ".join(f"{k} fails {x}" for k, x in got.items()),
+          flush=True)
+    return launches
+
+
+def eip_4844_full(dev, card):
+    """Phase (d): two blobs of 4096 elements, the two a block may carry."""
+    from zkevm_circuits_tpu_torch.models import eip_4844 as e44
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    cfg = e44.EIP4844Config()
+    times, hashes = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset_counts()
+    for b in range(2):
+        chunks, vh = blob_inputs(cfg.elements, 100 + b)
+        bw = block.stage(times, f"blob {b} witness", lambda: e44.generate_witness(chunks, vh, cfg))
+        res = block.stage(times, f"blob {b} eval", lambda: e44.eval_constraints(bw, cfg))
+        block.stage(times, f"blob {b} compact", lambda: e44.instance_compact_form(bw, cfg))
+        if _bad(res) or bw.chunks.device.type != dev.type:
+            _fail(f"eip_4844 blob {b}: residuals {_bad(res)} are false, or not on the card")
+        got = (bytes(bw.linear_hash.cpu().tolist()), bytes(bw.output_hash.cpu().tolist()))
+        if got != blob_host(chunks, vh):
+            _fail(f"eip_4844 blob {b}: the hashes are not the host's")
+        hashes.append(got[1].hex()[:16])
+        if b == 0:
+            forged, want = probe_blob_coefficient(bw)
+            probe = _expect(e44.eval_constraints(forged, cfg), want, "eip_4844 coefficient")
+    torch.cuda.synchronize()
+    launches = KERNEL.counts()
+    print(f"eip_4844: two blobs of {cfg.elements} elements; seconds first / steady "
+          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          + f"; all residuals true; linear and output hashes == the host's (output {hashes}); "
+          f"a changed coefficient fails {probe}; Poseidon2 launches {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
@@ -1526,6 +2025,11 @@ def main():
     launches_log_path = log_path_full(dev, card)
     torch.cuda.empty_cache()
     launches_log_sorter = log_sorter_full(dev, card)
+    torch.cuda.empty_cache()
+    memory_thread_small(dev)
+    launches_memory_thread = memory_thread_full(dev, card)
+    torch.cuda.empty_cache()
+    launches_eip_4844 = eip_4844_full(dev, card)
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
@@ -1536,7 +2040,9 @@ def main():
                        launches_sorter_full=launches_sorter_full[key],
                        launches_logup=launches_logup[key],
                        launches_log_path=launches_log_path[key],
-                       launches_log_sorter=launches_log_sorter[key])
+                       launches_log_sorter=launches_log_sorter[key],
+                       launches_memory_thread=launches_memory_thread[key],
+                       launches_eip_4844=launches_eip_4844[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

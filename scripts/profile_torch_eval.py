@@ -4,7 +4,7 @@ on one CUDA card.
 
     python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles] [log2_prove_rows]
                                           [log2_sorter_full_rows] [log2_log_path_cycles]
-                                          [log2_log_sorter_rows]
+                                          [log2_log_sorter_rows] [log2_memory_thread_cycles]
 
 A size of 0 skips that part.  For ram_permutation.eval_constraints (default
 2^20 rows, chain stride 512), vm.eval_constraints (default 2^16 cycles),
@@ -21,14 +21,22 @@ makes it), and the witness generation with the native host chains' share of
 it.  For the sorter full argument it also times its parts one by one, as
 prove_sorter_full runs them (the grand-product prove and verify, each
 chain STARK's prove and verify), then the compact-commitment STARKs of the
-instances and the recursion leaf check over them.  For the log path (default
-chip_smoke.py's log-heavy program for 2^16 cycles, instances of 2^12) it
+instances and the recursion leaf check over them.  For the log path
+(`runtime.block.log_path` after chip_smoke.py's log-heavy program for 2^16
+cycles, instances of 2^12) it
 prints each circuit's steady evaluation, one profiled window over all seven
 evaluations and one over the linear hasher's alone, and the share of demux's
 witness that turning the log rows into tensors takes; for the log sorter
 (default 2^18 rows of chip_smoke.py's event tapes in instances of 2^16) the
-witness with its native chains' share and a profiled evaluation.  Every
-line carries the card's name and power limit.  Needs a CUDA card.
+witness with its native chains' share and a profiled evaluation.  The log
+path part also profiles storage application's evaluation on the storage
+sorter's survivors (`block.storage_application`).  For the memory thread
+(`block.memory_thread` after chip_smoke.py's precompile-heavy program for
+2^16 cycles, chip_smoke.MEM_LIMITS) it prints
+each circuit's steady evaluation, one profiled window over all of them and
+one each over the ecrecover, keccak and sha256 evaluations, then a profiled
+eip_4844 evaluation of one 4096-element blob.  Every line carries the card's
+name and power limit.  Needs a CUDA card.
 """
 
 import os
@@ -50,7 +58,7 @@ from zkevm_circuits_tpu_torch.ops import queues  # noqa: E402
 from zkevm_circuits_tpu_torch.prover import pipeline  # noqa: E402
 from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa  # noqa: E402
 from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp  # noqa: E402
-from zkevm_circuits_tpu_torch.runtime import native  # noqa: E402
+from zkevm_circuits_tpu_torch.runtime import block, native  # noqa: E402
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np  # noqa: E402
 
 
@@ -174,6 +182,7 @@ def main():
     log_sorter = int(sys.argv[4]) if len(sys.argv) > 4 else 16
     log_path_cycles = int(sys.argv[5]) if len(sys.argv) > 5 else 16
     log_sorter_rows = int(sys.argv[6]) if len(sys.argv) > 6 else 18
+    log_mem_cycles = int(sys.argv[7]) if len(sys.argv) > 7 else 16
     card = card_line()
     if log_ram:
         ram_eval(log_ram, card)
@@ -187,6 +196,8 @@ def main():
         log_path_eval(log_path_cycles, card)
     if log_sorter_rows:
         log_sorter_eval(log_sorter_rows, card)
+    if log_mem_cycles:
+        memory_thread_eval(log_mem_cycles, card)
 
 
 def log_path_eval(log_cycles, card):
@@ -196,6 +207,7 @@ def log_path_eval(log_cycles, card):
     from zkevm_circuits_tpu_torch.models import linear_hasher as lh
     from zkevm_circuits_tpu_torch.models import log_sorter as ls
     from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
+    from zkevm_circuits_tpu_torch.models import storage_application as sa
     from zkevm_circuits_tpu_torch.models import storage_validity as sv
 
     cycles = 1 << log_cycles
@@ -204,7 +216,7 @@ def log_path_eval(log_cycles, card):
     words, kw = chip_smoke.log_program(iterations)
     v = vm.NativeEraVM(words, cycles, **kw)
     w = v.run()
-    out, _, _, _, counts = chip_smoke.log_path(v, w, (limit, limit), None)
+    out, _, _, _, counts = block.log_path(v, w, (limit, limit), None)
     dw = out["main_vm"][0]
     evals = {
         "main_vm": lambda: vm.eval_constraints(dw, cycles),
@@ -227,6 +239,13 @@ def log_path_eval(log_cycles, card):
           + f"; sum {1000 * sum(steady.values()):.1f} ms [{card}]", flush=True)
     profile(f"log path, the {len(evals)} evaluations", lambda: [fn() for fn in evals.values()], card)
     profile("linear hasher eval", evals["linear_hasher"], card)
+    aw, _, _, survivors = block.storage_application(
+        out["storage_validity"][0], kw["storage"], None)
+    acfg = sa.StorageApplicationConfig(aw.row_execute.shape[0])
+    profile(f"storage application eval ({len(survivors)} queries, "
+            f"{int(aw.row_execute.sum())} stage rows of {aw.row_execute.shape[0]})",
+            lambda: sa.eval_constraints(aw, acfg), card)
+    del aw
     logs = [dict(q) for q in v.log_tape]
     tensors, rows_s = timed(lambda: LogQueries.from_lists(logs))
     _, gen_s = timed(lambda: dm.generate_witness(tensors, dm.DemuxConfig(
@@ -235,6 +254,53 @@ def log_path_eval(log_cycles, card):
           f"generate_witness (7 native chains in one call) {gen_s:.3f} s [{card}]", flush=True)
     del out, dw
     torch.cuda.empty_cache()
+
+
+def memory_thread_eval(log_cycles, card):
+    import chip_smoke
+    from zkevm_circuits_tpu_torch.models import code_unpacker_sha256 as cu
+    from zkevm_circuits_tpu_torch.models import ecrecover as ecr
+    from zkevm_circuits_tpu_torch.models import eip_4844 as e44
+    from zkevm_circuits_tpu_torch.models import keccak256_round_function as kc
+    from zkevm_circuits_tpu_torch.models import sha256_round_function as sh
+    from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
+
+    cycles = 1 << log_cycles
+    iterations = chip_smoke.MEM_ITERATIONS * cycles >> chip_smoke.LOG2_MEM_CYCLES
+    limits = tuple(min(cycles, x) for x in chip_smoke.MEM_LIMITS)
+    words, kw, _ = chip_smoke.memory_program(iterations)
+    v = vm.NativeEraVM(words, cycles, **kw)
+    w = v.run()
+    out, _, counts = block.memory_thread(v, w, kw["code_store"], limits, None)
+    wit = {name: x[0] for name, x in out.items()}
+    evals = {
+        "main_vm": lambda: vm.eval_constraints(wit["main_vm"], cycles),
+        "sort_decommittments": lambda: sd.eval_constraints(
+            wit["sort_decommittments"], sd.DecommitSorterConfig(limits[2])),
+        "code_unpacker": lambda: cu.eval_constraints(
+            wit["code_unpacker"], cu.CodeUnpackerConfig(wit["code_unpacker"].round_execute.shape[0])),
+        "keccak256": lambda: kc.eval_constraints(wit["keccak256"], kc.KeccakRoundFunctionConfig(
+            wit["keccak256"].block_execute.shape[0], wit["keccak256"].reads.shape[0])),
+        "sha256": lambda: sh.eval_constraints(
+            wit["sha256"], sh.Sha256RoundFunctionConfig(wit["sha256"].round_execute.shape[0])),
+        "ecrecover": lambda: ecr.eval_constraints(
+            wit["ecrecover"], ecr.EcrecoverConfig(wit["ecrecover"].call_execute.shape[0])),
+        "ram_permutation": lambda: ram.eval_constraints(
+            wit["ram_permutation"], ram.RamPermutationConfig(limits[3])),
+    }
+    steady = {name: wall(fn) for name, fn in evals.items()}
+    print(f"memory thread 2^{log_cycles} cycles {counts}: steady evaluations "
+          + "; ".join(f"{name} {1000 * s:.1f} ms" for name, s in steady.items())
+          + f"; sum {1000 * sum(steady.values()):.1f} ms [{card}]", flush=True)
+    profile(f"memory thread, the {len(evals)} evaluations",
+            lambda: [fn() for fn in evals.values()], card)
+    for name in ("ecrecover", "keccak256", "sha256"):
+        profile(f"{name} eval", evals[name], card)
+    del out, wit, evals
+    torch.cuda.empty_cache()
+    cfg = e44.EIP4844Config()
+    bw = e44.generate_witness(*chip_smoke.blob_inputs(cfg.elements, 100), cfg)
+    profile(f"eip_4844 eval ({cfg.elements} elements)", lambda: e44.eval_constraints(bw, cfg), card)
 
 
 def log_sorter_eval(log_rows, card):

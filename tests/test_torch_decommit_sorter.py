@@ -25,6 +25,7 @@ from torch_log_helpers import (
 from zkevm_circuits_tpu_torch.base_structures.decommit_query import DecommitQueries
 from zkevm_circuits_tpu_torch.models import sort_decommittment_requests as sd
 from zkevm_circuits_tpu_torch.models import vm
+from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     decommit_sorter_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
@@ -38,7 +39,7 @@ def requests():
     words, kw = chip_smoke.log_program(10)
     v = vm.NativeEraVM(words, 512, **kw)
     v.run()
-    b = chip_smoke.block_rows(v)
+    b = block.block_rows(v)
     assert len(b["dec"]) == 11 and sum(r["is_first"] for r in b["dec"]) == 5
     return b["dec"], b["dec_sorted"]
 

@@ -26,6 +26,7 @@ from torch_vm_programs import PROGRAMS, run_vm
 from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
 from zkevm_circuits_tpu_torch.models import demux_log_queue as dm
 from zkevm_circuits_tpu_torch.models import vm
+from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     demux_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
@@ -88,8 +89,8 @@ def test_chip_smoke_log_program_on_the_cpu():
     words, kw = chip_smoke.log_program(18)
     v = vm.NativeEraVM(words, 1024, **kw)
     w = v.run()
-    out, handoffs, digest, want, counts = chip_smoke.log_path(v, w, (256, 16), torch.device(CPU))
+    out, handoffs, digest, want, counts = block.log_path(v, w, (256, 16), torch.device(CPU))
     assert not {n: chip_smoke._bad(r) for n, (_, r, _) in out.items() if chip_smoke._bad(r)}
     assert all(handoffs.values()) and digest == want
-    assert counts["l1_messages"] == 1 and counts["rollbacks"] == 6 and counts["decommits"] == 19
+    assert counts["l1_messages"] == 10 and counts["rollbacks"] == 7 and counts["decommits"] == 19
     chip_smoke.log_probes(out, (256, 16))

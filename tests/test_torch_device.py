@@ -101,3 +101,30 @@ def test_generate_witness_follows_its_inputs(no_card):
     assert w.lhs.device.type == "cpu" and w.n == 3
     with pytest.raises(ValueError):
         ram.generate_witness(q, q, ram.RamPermutationConfig(limit=4), backend="tpu")
+
+
+def test_memory_thread_and_storage_entry_points_raise_without_a_device_or_a_card(no_card):
+    """the witnesses of types 3, 5, 6, 7, 10 and eip_4844, and the hash ops'
+    state constructors, follow the same rule"""
+    from zkevm_circuits_tpu_torch.models import (
+        code_unpacker_sha256 as cu, ecrecover as ecr, eip_4844 as e44,
+        keccak256_round_function as kc, sha256_round_function as sh, storage_application as sa,
+    )
+    from zkevm_circuits_tpu_torch.ops import blake2s, sha256
+
+    calls = [
+        lambda: sh.generate_witness([], {}, sh.Sha256RoundFunctionConfig(2)),
+        lambda: cu.generate_witness([], {}, cu.CodeUnpackerConfig(2)),
+        lambda: kc.generate_witness([], {}, kc.KeccakRoundFunctionConfig(2, 2)),
+        lambda: ecr.generate_witness([], {}, ecr.EcrecoverConfig(1)),
+        lambda: sa.generate_witness([], sa.SparseStorageTree(), 1, sa.StorageApplicationConfig(2)),
+        lambda: e44.generate_witness([], bytes(32), e44.EIP4844Config(2)),
+        lambda: sha256.initial_state((2,)),
+        lambda: blake2s.initial_state((2,)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    w = sh.generate_witness([], {}, sh.Sha256RoundFunctionConfig(2), device="cpu")
+    assert w.mem_chain.device.type == w.round_execute.device.type == "cpu"
+    assert sha256.initial_state((2,), device="cpu").shape == (2, 8)

@@ -1,7 +1,7 @@
 """The block's log path in the torch port against the JAX package on the CPU:
 the batched keccak ops and the linear hasher (type 13), then demux ->
 storage / events / L1 sorters -> hasher as the block runtime wires them
-(chip_smoke.py's `log_path`) on the two log programs of
+(`runtime.block.log_path`) on the two log programs of
 tests/torch_vm_programs.py.  Demux itself and a short run of chip_smoke.py's
 log-heavy program are in tests/test_torch_demux.py.
 
@@ -31,6 +31,7 @@ from zkevm_circuits_tpu_torch.isa import system_params as sp
 from zkevm_circuits_tpu_torch.models import linear_hasher as lh
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.ops import keccak
+from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     linear_hasher_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
@@ -151,7 +152,7 @@ def test_block_log_path_on_a_program(name):
     the host keccak of the survivors (keccak256("") when none survives)"""
     entry = dict(PROGRAMS[name], tamper=None)
     v, w = run_vm(vm.EraVM, entry)
-    out, handoffs, digest, want, counts = chip_smoke.log_path(v, w, (8, 8), torch.device(CPU))
+    out, handoffs, digest, want, counts = block.log_path(v, w, (8, 8), torch.device(CPU))
     bad = {n: chip_smoke._bad(r) for n, (_, r, _) in out.items() if chip_smoke._bad(r)}
     # the programs preset registers, which main_vm's boot pins reject; and the
     # EraVM oracle does not undo the reverted storage write, so the read after
@@ -172,6 +173,6 @@ def test_block_log_path_on_a_program(name):
         assert digest == keccak.keccak256_ref(b"")
     # the survivors the hasher took are the L1 sorter's result queue
     lw, hw = out["log_sorter_12"][0], out["linear_hasher"][0]
-    survivors = chip_smoke._rows(lw.result_items, lw.result_add)
+    survivors = block.soa_rows(lw.result_items, lw.result_add)
     assert len(survivors) == counts["l1_survivors"] == hw.n
-    assert chip_smoke._rows(hw.queries, hw.execute) == survivors
+    assert block.soa_rows(hw.queries, hw.execute) == survivors

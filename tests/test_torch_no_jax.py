@@ -41,7 +41,11 @@ def test_port_modules_import_without_jax():
                  "models.recursion", "ops.keccak", "models.vm.sim", "models.vm.compact",
                  "entry", "models.sort_decommittment_requests", "models.demux_log_queue",
                  "models.storage_validity", "models.log_sorter", "models.linear_hasher",
-                 "ops.sha256", "ops.secp256k1"):
+                 "ops.sha256", "ops.secp256k1", "ops.blake2s", "tables",
+                 "models.precompile_common", "models.sha256_round_function",
+                 "models.code_unpacker_sha256", "models.keccak256_round_function",
+                 "models.ecrecover", "models.storage_application", "models.eip_4844",
+                 "runtime.block"):
         assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -28,6 +28,7 @@ from torch_vm_programs import PROGRAMS, run_vm
 from zkevm_circuits_tpu_torch.base_structures.log_query import LogQueries
 from zkevm_circuits_tpu_torch.models import storage_validity as sv
 from zkevm_circuits_tpu_torch.models import vm
+from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     residuals_to_numpy, storage_validity_witness_from_numpy, witness_to_numpy,
 )
@@ -37,7 +38,7 @@ LIMIT = 32
 
 
 def _inputs(v, device=CPU):
-    b = chip_smoke.block_rows(v)
+    b = block.block_rows(v)
     return (LogQueries.from_lists(b["storage"], device),
             LogQueries.from_lists(b["storage_sorted"], device), b["storage_ts"], b)
 

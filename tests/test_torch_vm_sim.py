@@ -20,6 +20,7 @@ from zkevm_circuits_tpu.ops import sha256 as jsha
 
 from torch_vm_programs import PROGRAMS, run_vm
 from zkevm_circuits_tpu_torch.models import vm
+from zkevm_circuits_tpu_torch.models import ecrecover, sha256_round_function as sha_rf
 from zkevm_circuits_tpu_torch.models.vm import sim
 from zkevm_circuits_tpu_torch.ops import secp256k1, sha256
 
@@ -95,12 +96,14 @@ def test_simulate_and_config():
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_host_copies_equal_the_jax_package(seed):
     """The sha256 and secp256k1 host math and the two precompile helpers the
-    Python EraVM carries equal their originals."""
+    Python EraVM takes from the port's circuits equal their originals."""
     rng = np.random.default_rng(seed)
     data = rng.bytes(int(rng.integers(0, 300)))
     assert sha256.sha256_ref(data) == jsha.sha256_ref(data)
     block = [int(x) for x in rng.integers(0, 1 << 32, size=16, dtype=np.uint64)]
     assert sha256.compress_ref(sha256.H0, block) == jsha.compress_ref(jsha.H0, block)
+    assert sim._digest_value_limbs is sha_rf._digest_value_limbs
+    assert sim._analyze_ecrecover_call is ecrecover._analyze_call
     assert sim._digest_value_limbs(block[:8]) == jsha_rf._digest_value_limbs(block[:8])
     h = int.from_bytes(rng.bytes(32), "big")
     priv, k = int(rng.integers(1, 1 << 62)), int(rng.integers(1, 1 << 62))

@@ -38,7 +38,6 @@ from .demux_log_queue import pad_log_queries
 
 L2_TO_L1_MESSAGE_BYTE_LENGTH = 88
 RATE = keccak.KECCAK_RATE_BYTES  # 136
-_LANES = RATE // 8  # 17
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +81,7 @@ def _build_blocks(msg_bytes: torch.Tensor, n: int, max_blocks: int):
     stream = torch.where(idx == msg_len, torch.full_like(stream, 0x01), stream)
     stream = torch.where(idx == nblocks * RATE - 1, stream | 0x80, stream)
     # bytes -> 64-bit lanes (17 per block), little-endian within lane
-    by = stream.reshape(max_blocks, _LANES, 8)
-    lo = by[..., 0] | (by[..., 1] << 8) | (by[..., 2] << 16) | (by[..., 3] << 24)
-    hi = by[..., 4] | (by[..., 5] << 8) | (by[..., 6] << 16) | (by[..., 7] << 24)
+    lo, hi = keccak.lane_halves(stream.reshape(max_blocks, RATE))
     execute = torch.arange(max_blocks, device=dev) < nblocks
     return lo, hi, execute, nblocks
 
@@ -108,15 +105,6 @@ def _keccak_chain_host(block_lo: torch.Tensor, block_hi: torch.Tensor, execute: 
     hi = (full >> np.uint64(32)).astype(np.int64)
     dev = block_lo.device
     return torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
-
-
-def digest_from_state(state_lo: torch.Tensor, state_hi: torch.Tensor) -> torch.Tensor:
-    """(..., 25) state -> (..., 32) digest bytes (first 4 lanes, LE bytes)."""
-    outs = []
-    for lane in range(4):
-        for part in (state_lo, state_hi):
-            outs += [(part[..., lane] >> (8 * j)) & 0xFF for j in range(4)]
-    return torch.stack(outs, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,7 +156,7 @@ def generate_witness(queries: LogQueries, config: LinearHasherConfig,
         block_execute=bex,
         state_lo=slo,
         state_hi=shi,
-        digest=digest_from_state(slo[nblocks], shi[nblocks]),
+        digest=keccak.digest_bytes(slo[nblocks], shi[nblocks]),
     )
 
 
@@ -188,7 +176,7 @@ def eval_constraints(w: LinearHasherWitness, config: LinearHasherConfig) -> dict
     exp_lo = torch.where(run, exp_lo, w.state_lo[:-1])
     exp_hi = torch.where(run, exp_hi, w.state_hi[:-1])
     keccak_ok = ((exp_lo == w.state_lo[1:]) & (exp_hi == w.state_hi[1:])).all(-1)
-    digest_ok = (digest_from_state(w.state_lo[nblocks], w.state_hi[nblocks]) == w.digest).all()
+    digest_ok = (keccak.digest_bytes(w.state_lo[nblocks], w.state_hi[nblocks]) == w.digest).all()
     return {
         "encodings": enc_ok,
         "input_chain": chain_ok,

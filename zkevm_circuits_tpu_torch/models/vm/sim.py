@@ -28,10 +28,11 @@ callstack sponge with resolved encodings.
 
 The port's own copies stand in for what this module took from the JAX
 package: `hashlib` for the bootloader code hash, `ops/sha256.py` and
-`ops/secp256k1.py` (host math), and `_digest_value_limbs` and
-`_analyze_ecrecover_call` below (the sha256 and ecrecover circuits' host
-helpers, not ported yet).  `assemble_code_words` lives in `native_sim.py`,
-the front end of the same C++ oracle, and is imported from there.
+`ops/secp256k1.py` (host math); the sha256 and ecrecover circuits' host
+helpers (`_digest_value_limbs`, `_analyze_call`) come from the port's
+circuits, as the JAX oracle takes them from its own.  `assemble_code_words`
+lives in `native_sim.py`, the front end of the same C++ oracle, and is
+imported from there.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from ...isa import system_params as sp
 from ...ops import secp256k1 as ec
 from ...ops import sha256 as sha_ops
 from ...ops.keccak import keccak256_ref
+from ..ecrecover import _analyze_call as _analyze_ecrecover_call
+from ..sha256_round_function import _digest_value_limbs
 from .native_sim import assemble_code_words  # noqa: F401  (re-exported)
 from .state import (
     ExecutionContextRecord,
@@ -66,66 +69,6 @@ U256 = (1 << 256) - 1
 
 def _limbs8(v: int) -> list:
     return [(v >> (32 * k)) & U32 for k in range(8)]
-
-
-def _digest_value_limbs(state_words) -> list:
-    """Final sha256 state -> u256 limbs per the reference's LE repack (the JAX
-    package's `models/sha256_round_function.py:_digest_value_limbs`)."""
-    limbs = [0] * 8
-    for k in range(8):
-        w = int(state_words[k])
-        be = w.to_bytes(4, "big")
-        limbs[7 - k] = int.from_bytes(be, "little")
-    return limbs
-
-
-# new_optimized.rs:109 HALF_SUBGROUP_SIZE = (n-1)/2; s >= this is an exception
-_HALF_N = (ec.N - 1) // 2
-# 2^256 - n: r >= this means r + n overflows 256 bits (the `error` flag)
-_R_PLUS_N_OVERFLOW = (1 << 256) - ec.N
-
-
-def _analyze_ecrecover_call(h, v, r, s):
-    """host-side mirror of the in-circuit exception evaluation (the JAX
-    package's `models/ecrecover.py:_analyze_call`).
-
-    Returns a dict with all per-call derived quantities (flags, t/ry/w_cert,
-    ladder inputs).  Mirrors new_optimized.rs:913-1096."""
-    recid = v & 0xFF
-    y_odd = recid & 1
-    x_ovf = (recid >> 1) & 1
-    out = dict(y_odd=y_odd, x_ovf=x_ovf, t=0, ry=0, w_cert=0, nonres=False,
-               rx=0, exc_inf=False, R=None)
-    out["exc_s_conv"] = s >= _HALF_N
-    out["exc_error"] = bool(x_ovf) and r >= _R_PLUS_N_OVERFLOW
-    out["exc_r_zero"] = r % ec.N == 0
-    out["exc_s_zero"] = s % ec.N == 0
-    need_x = not out["exc_error"]
-    x = (r + ec.N * x_ovf) if need_x else 0
-    out["rx"] = x
-    out["exc_x_range"] = need_x and x >= ec.P
-    need_t = need_x and not out["exc_x_range"]
-    out["need_t"] = need_t
-    t = (x * x * x + ec.B) % ec.P if need_t else 0
-    out["t"] = t
-    out["exc_t_zero"] = need_t and t == 0
-    if need_t and not out["exc_t_zero"]:
-        y = pow(t, (ec.P + 1) // 4, ec.P)
-        if y * y % ec.P == t:
-            out["ry"] = y if (y & 1) == y_odd else ec.P - y
-            out["R"] = (x, out["ry"])
-        else:
-            out["nonres"] = True
-            out["w_cert"] = pow(ec.P - t, (ec.P + 1) // 4, ec.P)
-            if out["w_cert"] ** 2 % ec.P != (ec.P - t) % ec.P:
-                raise ArithmeticError("no square root of -t: the non-residue certificate fails")
-    out["pre_exc"] = (
-        out["exc_s_conv"] or out["exc_error"] or out["exc_x_range"]
-        or out["exc_r_zero"] or out["exc_s_zero"] or out["exc_t_zero"]
-        or out["nonres"]
-    )
-    out["ladder_on"] = not out["pre_exc"]
-    return out
 
 
 @dataclasses.dataclass(frozen=True)

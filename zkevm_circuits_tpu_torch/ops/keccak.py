@@ -11,7 +11,7 @@ clears its upper bits.  The 24 rounds are a Python loop over the batch (the
 JAX package scans them); the linear hasher checks its keccak chain with
 `absorb_block` on the card.
 
-Host reference (`keccak_f1600_ref`, `keccak256_ref`): copied so that the port
+Host reference (`keccak_f1600_ref`, `keccak256_ref`, `bytes_to_lanes`): copied so that the port
 needs nothing of the JAX package; the recursion layer's interblock aggregator
 (`models/recursion.py`) and the linear hasher's witness chain use it.
 """
@@ -119,6 +119,24 @@ def absorb_block(lo, hi, block_lo, block_hi):
     return keccak_f1600(lo ^ torch.cat([block_lo, z], dim=-1), hi ^ torch.cat([block_hi, z], dim=-1))
 
 
+def lane_halves(block_bytes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., 8k) byte values -> the (..., k) lo / hi u32 halves of the
+    little-endian 64-bit lanes."""
+    by = block_bytes.reshape(tuple(block_bytes.shape[:-1]) + (block_bytes.shape[-1] // 8, 8))
+    lo = by[..., 0] | (by[..., 1] << 8) | (by[..., 2] << 16) | (by[..., 3] << 24)
+    hi = by[..., 4] | (by[..., 5] << 8) | (by[..., 6] << 16) | (by[..., 7] << 24)
+    return lo, hi
+
+
+def digest_bytes(state_lo: torch.Tensor, state_hi: torch.Tensor) -> torch.Tensor:
+    """(..., 25) state -> (..., 32) keccak256 digest bytes (the first 4 lanes, LE)."""
+    outs = []
+    for lane in range(4):
+        for part in (state_lo, state_hi):
+            outs += [(part[..., lane] >> (8 * j)) & 0xFF for j in range(4)]
+    return torch.stack(outs, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Host reference (python ints)
 # ---------------------------------------------------------------------------
@@ -170,3 +188,10 @@ def keccak256_ref(data: bytes) -> bytes:
         state = keccak_f1600_ref(state)
     out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
     return out
+
+
+def bytes_to_lanes(block: bytes) -> List[int]:
+    """little-endian 64-bit lanes of a byte string whose length is a multiple of 8."""
+    if len(block) % 8:
+        raise ValueError(f"{len(block)} bytes are not whole 64-bit lanes")
+    return [int.from_bytes(block[8 * i : 8 * i + 8], "little") for i in range(len(block) // 8)]

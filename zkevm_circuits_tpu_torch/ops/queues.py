@@ -132,20 +132,30 @@ def simulate_chain(
 
 
 def simulate_chains(
-    width: int, chains: Sequence[Tuple[torch.Tensor, torch.Tensor]], backend: str = "host"
+    width: int, chains: Sequence[Tuple[torch.Tensor, torch.Tensor]], backend: str = "host",
+    init: Optional[Sequence] = None,
 ) -> List[torch.Tensor]:
-    """Several sponge chains from the empty state, every state of each.
+    """Several sponge chains, every state of each.
 
     chains: [(encodings (n_k, L), execute (n_k,) bool)], all of one encoding
     length L and on one device; returns [(n_k + 1, W)] on that device.
+    init: each chain's first state ((W,) field tensor, u64 numpy or ints; None
+    for the empty state), or None for all of them empty: a memory chain that
+    continues where the previous circuit's stopped starts from its last state.
     backend="host": one call of the native runtime for all of them (the
     shorter chains padded to the longest with rows not executed, then cut
     back), one download of the encodings and one upload of the states; the
     witness path on the card.
     backend="device": `simulate_chain` chain by chain, a batched permutation
     a step: the plain version, for a few rows on the CPU."""
+    starts = np.zeros((len(chains), width), np.uint64)
+    for k, state in enumerate(init or []):
+        if state is not None:
+            starts[k] = gf.to_u64(state) if isinstance(state, torch.Tensor) else np.asarray(
+                state, np.uint64)
     if backend == "device":
-        return [simulate_chain(gf.zeros((width,), enc.device), enc, ex) for enc, ex in chains]
+        return [simulate_chain(gf.from_u64(starts[k], enc.device), enc, ex)
+                for k, (enc, ex) in enumerate(chains)]
     if backend != "host":
         raise ValueError(f"unknown backend {backend!r}")
     from ..runtime import native
@@ -158,13 +168,12 @@ def simulate_chains(
     for k, (e, x) in enumerate(chains):
         enc[k, : e.shape[0]] = gf.to_u64(e)
         ex[k, : e.shape[0]] = x.cpu().numpy()
-    init = np.zeros((len(chains), width), np.uint64)
     if width == FULL_STATE_WIDTH:
         if length != poseidon2.RATE:
             raise ValueError(f"a full-state chain absorbs {poseidon2.RATE} elements a row")
-        states = native.full_state_chains(enc, ex, init)
+        states = native.full_state_chains(enc, ex, starts)
     else:
-        states = native.narrow_chains(enc, ex, init)
+        states = native.narrow_chains(enc, ex, starts)
     return [gf.from_u64(states[k, : e.shape[0] + 1], dev) for k, (e, _) in enumerate(chains)]
 
 

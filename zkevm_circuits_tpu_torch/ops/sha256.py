@@ -1,13 +1,27 @@
-"""sha256 compression on python ints: the host reference of the JAX
-package's `ops/sha256.py`, copied so that the port needs nothing of that
-package (the Python EraVM's sha256 precompile host execution uses it).  The
-batched sha256 of the code unpacker and the precompile circuit is not ported
-yet.
+"""sha256 compression: a batched torch form and the host reference on python
+ints (the JAX package's `ops/sha256.py`).
+
+Batched form (`compress`, `initial_state`): a batch of states is an int64
+tensor (..., 8), a block (..., 16) big-endian u32 words, each value in
+[0, 2^32).  Every add and left shift is cut back to 32 bits (`& M32`); a
+right shift acts on a value already in range, so the arithmetic shift of
+int64 is the logical one; a NOT is always ANDed with an in-range value.  The
+48 schedule steps and the 64 rounds are Python loops over the batch (the JAX
+package scans them).  The code unpacker and the sha256 precompile circuit
+check every compression of their witness with one call.
+
+Host reference (`compress_ref`, `sha256_ref`): copied so that the port needs
+nothing of the JAX package; the witnesses and the Python EraVM's precompile
+host execution use it.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import torch
+
+from ..utils.device import resolve_device
 
 H0 = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19]
@@ -27,6 +41,48 @@ K = [
 ]
 
 _M32 = 0xFFFFFFFF
+M32 = _M32
+
+
+# ---------------------------------------------------------------------------
+# Batched form on torch tensors
+# ---------------------------------------------------------------------------
+
+
+def _rotr(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x >> r) | ((x << (32 - r)) & M32)
+
+
+def compress(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """One sha256 compression over a batch; state (..., 8), block (..., 16)
+    int64 holding u32 big-endian words.  Returns (..., 8)."""
+    w = [block[..., i] for i in range(16)]
+    for t in range(16, 64):
+        wm15, wm2 = w[t - 15], w[t - 2]
+        s0 = _rotr(wm15, 7) ^ _rotr(wm15, 18) ^ (wm15 >> 3)
+        s1 = _rotr(wm2, 17) ^ _rotr(wm2, 19) ^ (wm2 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    a, b, c, d, e, f, g, h = (state[..., i] for i in range(8))
+    for t in range(64):
+        S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = h + S1 + ch + K[t] + w[t]
+        S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & M32, c, b, a, (t1 + S0 + maj) & M32
+    return torch.stack([(o + state[..., i]) & M32 for i, o in enumerate((a, b, c, d, e, f, g, h))],
+                       dim=-1)
+
+
+def initial_state(batch_shape=(), device=None) -> torch.Tensor:
+    """H0 broadcast to (..., 8); `device=None` is the card, or an error without one."""
+    h0 = torch.tensor(H0, dtype=torch.int64, device=resolve_device(device))
+    return h0.expand(tuple(batch_shape) + (8,))
+
+
+# ---------------------------------------------------------------------------
+# Host reference
+# ---------------------------------------------------------------------------
 
 
 def _rotr_ref(x, r):

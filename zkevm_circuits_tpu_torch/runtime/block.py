@@ -1,0 +1,429 @@
+"""The block's producer -> consumer paths after one EraVM run, as the JAX
+package's block runtime wires them (zkevm_circuits_tpu/runtime/block2.py):
+
+- `log_path` (block2.py:214-470): main_vm and its instance compact forms,
+  the decommit sorter (type 2), demux (4), the storage, events and L1
+  sorters (9, 11, 12) and the linear hasher (13);
+- `storage_application` (block2.py:405-431): the storage tree (type 10) on
+  storage_validity's survivors, seeded from the run's initial storage;
+- `memory_thread` (block2.py:257-381): the decommit sorter, the code
+  unpacker (3), the keccak, sha256 and ecrecover precompiles (5, 6, 7),
+  each continuing the global memory queue where its predecessor stopped,
+  and ram_permutation (8) over the union of the heap-init rows, the VM's
+  tape, the unpacker's writes and the precompiles' traffic.
+
+Each returns circuit -> (witness, residuals, compact forms) and the
+handoffs between circuits.  With `times` (a dict) every stage runs twice
+and its first and steady seconds land there.
+
+The union order of the memory thread is decided here, in `_thread_order`:
+each circuit's rows reach ram_permutation in its own memory chain's order
+(a call's reads, then its writes).  The JAX package appends all of a
+circuit's reads, then all its writes (block2.py:316-351); with two calls of
+one precompile that is not the order its memory chain absorbed, and its
+`memory_thread_closes` is false.  The rows handed on are masked as the JAX
+package masks them: the reads by `read_execute`, the writes by the call
+count (`2 * calls` for ecrecover).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..base_structures.decommit_query import DecommitQueries
+from ..base_structures.log_query import LogQueries
+from ..isa import system_params as sp
+from ..models import code_unpacker_sha256 as cu
+from ..models import demux_log_queue as dm
+from ..models import ecrecover as ecr
+from ..models import keccak256_round_function as kc
+from ..models import linear_hasher as lh
+from ..models import log_sorter as ls
+from ..models import ram_permutation as ram
+from ..models import sha256_round_function as sh
+from ..models import sort_decommittment_requests as sd
+from ..models import storage_application as sa
+from ..models import storage_validity as sv
+from ..models import vm
+from ..ops import gf, keccak, queues
+from ..ops.queues import QueueState
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return max(1, -(-n // m)) * m
+
+
+def soa_rows(soa, mask) -> list:
+    """rows of a query batch where `mask` holds, as dicts of python ints (the
+    block runtime's `_soa_rows`)."""
+    keep = np.flatnonzero(mask.cpu().numpy())
+    cols = {f.name: getattr(soa, f.name).cpu().numpy()[keep] for f in dataclasses.fields(soa)}
+    rows = []
+    for i in range(len(keep)):
+        row = {}
+        for name, col in cols.items():
+            v = col[i]
+            row[name] = (sum(int(x) << (32 * k) for k, x in enumerate(v)) if v.ndim
+                         else bool(v) if col.dtype == np.bool_ else int(v))
+        rows.append(row)
+    return rows
+
+
+def stage(times, name, fn):
+    """fn() once, or, with `times`, twice (first and steady seconds, each ended
+    by a synchronize); returns the last result."""
+    if times is None:
+        return fn()
+    seconds = []
+    for _ in range(2):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    times[name] = seconds
+    return out
+
+
+def _tails_equal(a, b) -> bool:
+    return bool(queues.queue_states_equal(a, b))
+
+
+def _same(a, b) -> bool:
+    return bool(torch.equal(a.cpu(), torch.as_tensor(b).cpu()))
+
+
+def block_rows(v) -> dict:
+    """What the block runtime hands each circuit from one EraVM run
+    (block2.py:257-470): the decommit requests (the boot push, then the
+    tape) sorted by (hash, timestamp), the log tape, the storage logs sorted
+    by (address, key, cycle index) with those indices, and the event and
+    L1-message logs sorted by (timestamp, rollback)."""
+    dec = [dict(r) for r in v.initial_dec_rows] + [dict(r) for r in v.decommit_tape]
+    logs = [dict(q) for q in v.log_tape]
+    storages = [r for r in logs if r["aux_byte"] == sp.STORAGE_AUX_BYTE]
+    order = sorted(range(len(storages)),
+                   key=lambda i: (storages[i]["address"], storages[i]["key"], i))
+    rows = dict(dec=dec, dec_sorted=sorted(dec, key=lambda r: (r["code_hash"], r["timestamp"])),
+                logs=logs, storage=storages, storage_sorted=[storages[i] for i in order],
+                storage_ts=order)
+    for name, aux in (("events", sp.EVENT_AUX_BYTE), ("l1_messages", sp.L1_MESSAGE_AUX_BYTE)):
+        rows[name] = [r for r in logs if r["aux_byte"] == aux]
+        rows[name + "_sorted"] = sorted(rows[name], key=lambda r: (r["timestamp"], bool(r["rollback"])))
+    return rows
+
+
+def _circuits(out, times):
+    """a function that runs one circuit's witness, evaluation and compact
+    form as stages and files them under its name in `out`."""
+    def circuit(name, gen, evaluate, compact):
+        wit = stage(times, f"{name} witness", gen)
+        res = stage(times, f"{name} eval", lambda: evaluate(wit))
+        out[name] = (wit, res, stage(times, f"{name} compact", lambda: compact(wit)))
+        return wit
+    return circuit
+
+
+def _decommit_sorter(circuit, rows, sorter_limit, device):
+    ccfg = sd.DecommitSorterConfig(limit=sorter_limit)
+    return circuit("sort_decommittments",
+                   lambda: sd.generate_witness(DecommitQueries.from_lists(rows["dec"], device),
+                                               DecommitQueries.from_lists(rows["dec_sorted"], device),
+                                               ccfg),
+                   lambda x: sd.eval_constraints(x, ccfg),
+                   lambda x: sd.instance_compact_forms(x, ccfg))
+
+
+def log_path(v, w, limits, device, times=None):
+    """The block's log and decommit queues after one VM run: `v` the EraVM
+    after `run()`, `w` its witness dict, `limits` the instance limits (vm,
+    sorter), `device` where the circuits run.  Returns (results: circuit ->
+    (witness, residuals, compact forms), handoffs, the L1 digest, the host
+    keccak of the survivors, counts)."""
+    vm_limit, sorter_limit = limits
+    out, handoffs = {}, {}
+    cycles = len(w["ts"]) - 1
+    dw = vm.prepare_device_witness(w, device=device)
+    res = stage(times, "main_vm eval", lambda: vm.eval_constraints(dw, cycles))
+    forms, proto = stage(times, "main_vm compact",
+                         lambda: vm.vm_instance_compact_forms(dw, vm_limit))
+    out["main_vm"] = (dw, dict(res, **{"protocol_" + k: x for k, x in proto.items()}), forms)
+    zeros4 = gf.zeros((4,), dw["ts"].device)
+    circuit = _circuits(out, times)
+
+    rows = block_rows(v)
+    cw = _decommit_sorter(circuit, rows, sorter_limit, device)
+    handoffs["vm_to_decommit_sorter"] = bool(
+        (cw.chain_unsorted[cw.n] == dw["dec_q_state"][-1]).all()) and cw.n == int(w["dec_q_len"][-1])
+
+    # type 4: demux of the whole log tape, one instance
+    dcfg = dm.DemuxConfig(limit=next_pow2(len(rows["logs"])))
+    dmw = circuit("demux_log_queue",
+                  lambda: dm.generate_witness(LogQueries.from_lists(rows["logs"], device), dcfg),
+                  lambda x: dm.eval_constraints(x, dcfg), lambda x: dm.instance_compact_form(x, dcfg))
+    handoffs["vm_to_demux"] = _tails_equal(
+        QueueState(zeros4, dmw.input_chain[dmw.n], dmw.n),
+        QueueState(zeros4, dw["log_fwd_tail"][-1], dw["log_fwd_len"][-1]))
+    out_states = dm.output_queue_states(dmw)
+
+    # type 9, then types 11 / 12
+    vcfg = sv.StorageValidityConfig(limit=sorter_limit)
+    svw = circuit("storage_validity",
+                  lambda: sv.generate_witness(
+                      LogQueries.from_lists(rows["storage"], device),
+                      LogQueries.from_lists(rows["storage_sorted"], device), rows["storage_ts"],
+                      vcfg),
+                  lambda x: sv.eval_constraints(x, vcfg), lambda x: sv.instance_compact_forms(x, vcfg))
+    handoffs["demux_to_storage_sorter"] = _tails_equal(
+        QueueState(zeros4, svw.chain_unsorted[svw.execute.shape[0]], svw.n),
+        out_states["rollup_storage"])
+    scfg = ls.LogSorterConfig(limit=sorter_limit)
+    for ctype, qname in ((11, "events"), (12, "l1_messages")):
+        sw = circuit(f"log_sorter_{ctype}",
+                     lambda: ls.generate_witness(LogQueries.from_lists(rows[qname], device),
+                                                 LogQueries.from_lists(rows[qname + "_sorted"], device),
+                                                 scfg),
+                     lambda x: ls.eval_constraints(x, scfg),
+                     lambda x: ls.instance_compact_forms(x, scfg))
+        handoffs[f"demux_to_sorter_{ctype}"] = _tails_equal(
+            QueueState(zeros4, sw.chain_unsorted[sw.execute.shape[0]], sw.n), out_states[qname])
+
+    # type 13: the L1 sorter's survivors, one instance
+    lw = out["log_sorter_12"][0]
+    total = lw.execute.shape[0]
+    survivors = soa_rows(lw.result_items, lw.result_add)
+    hcfg = lh.LinearHasherConfig(limit=next_pow2(max(1, len(survivors))))
+    hw = circuit("linear_hasher",
+                 lambda: lh.generate_witness(LogQueries.from_lists(survivors, device), hcfg),
+                 lambda x: lh.eval_constraints(x, hcfg), lambda x: lh.instance_compact_form(x, hcfg))
+    handoffs["l1_sorter_to_hasher"] = _tails_equal(
+        QueueState(zeros4, hw.input_chain[hw.execute.shape[0]], hw.n),
+        QueueState(zeros4, lw.result_chain[total + 1], lw.result_count[total]))
+    digest = bytes(hw.digest.cpu().tolist())
+    expected = keccak.keccak256_ref(b"".join(lh.serialize_l2_l1_ref(r) for r in survivors))
+    counts = {name: len(rows[name]) for name in ("logs", "storage", "events", "l1_messages")}
+    counts.update(rollbacks=sum(bool(r["rollback"]) for r in rows["logs"]),
+                  decommits=len(rows["dec"]), l1_survivors=len(survivors))
+    return out, handoffs, digest, expected, counts
+
+
+def storage_tree(storage: dict):
+    """the tree of the run's initial storage snapshot (the rollup shard's
+    nonzero cells, enumeration indices from 1 in key order), and the next index."""
+    tree, counter = sa.SparseStorageTree(), 1
+    for (shard, addr, key), val in sorted(storage.items()):
+        if shard != 0 or val == 0:
+            continue
+        tree.set_leaf(sa.path_bits(sa.derive_key_ref(addr, key)), counter, val)
+        counter += 1
+    return tree, counter
+
+
+def _timed_tree(storage, spent):
+    """`storage_tree(storage)` whose own work adds its seconds to spent[0]."""
+    tree, counter = storage_tree(storage)
+    for name in ("set_leaf", "path_at", "nodes_at", "node", "root"):
+        method = getattr(tree, name)
+
+        def timed(*args, _method=method):
+            t0 = time.perf_counter()
+            try:
+                return _method(*args)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        setattr(tree, name, timed)
+    return tree, counter
+
+
+def storage_application(svw, storage: dict, device, times=None):
+    """Type 10 on storage_validity's survivors (`svw` its witness): the tree
+    seeded from the initial storage snapshot, one instance of the next power
+    of two of stage rows.  With `times`, "storage_application tree" holds the
+    seconds of the tree's own work in each witness run.  Returns (witness,
+    residuals, compact form, survivors)."""
+    survivors = soa_rows(svw.push_items, svw.push_flags)
+    cfg = sa.StorageApplicationConfig(max_rows=next_pow2(sum(
+        2 if q["rw_flag"] else 1 for q in survivors)))
+    tree_s = []
+
+    def gen():
+        if times is None:
+            tree, counter = storage_tree(storage)
+            return sa.generate_witness(survivors, tree, counter, cfg, device=device)
+        spent = [0.0]
+        tree, counter = _timed_tree(storage, spent)
+        wit = sa.generate_witness(survivors, tree, counter, cfg, device=device)
+        tree_s.append(spent[0])
+        return wit
+
+    wit = stage(times, "storage_application witness", gen)
+    if times is not None:
+        times["storage_application tree"] = tree_s
+    res = stage(times, "storage_application eval", lambda: sa.eval_constraints(wit, cfg))
+    form = stage(times, "storage_application compact", lambda: sa.instance_compact_form(wit, cfg))
+    return wit, res, form, survivors
+
+
+def memory_tapes(parts) -> dict:
+    """numpy memory tapes {timestamp, memory_page, index, rw_flag, is_ptr,
+    value (n, 8)} from parts, each a list of row dicts or a (MemoryQueries,
+    row indices) pair, concatenated in order."""
+    cols = {k: [] for k in ("timestamp", "memory_page", "index", "rw_flag", "is_ptr", "value")}
+    for part in parts:
+        if isinstance(part, list):
+            if not part:
+                continue
+            cols["timestamp"].append(np.array([r["timestamp"] for r in part], np.int64))
+            cols["memory_page"].append(np.array([r["memory_page"] for r in part], np.int64))
+            cols["index"].append(np.array([r["index"] for r in part], np.int64))
+            cols["rw_flag"].append(np.array([bool(r["rw_flag"]) for r in part]))
+            cols["is_ptr"].append(np.array([bool(r["is_ptr"]) for r in part]))
+            cols["value"].append(np.array([[(int(r["value"]) >> (32 * k)) & 0xFFFFFFFF
+                                            for k in range(8)] for r in part], np.int64))
+        else:
+            q, idx = part
+            idx = torch.as_tensor(idx, device=q.timestamp.device)
+            for k in cols:
+                cols[k].append(getattr(q, k)[idx].cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def _thread_order(reads, read_call, n_reads, writes, per_call, n_calls):
+    """One precompile's rows for ram_permutation's union, in the order its
+    memory chain absorbed them: each call's executed reads (the first
+    `n_reads` rows, `read_call` their call), then its `per_call` writes.
+    Returns a (MemoryQueries of reads then writes, row indices) part of
+    `memory_tapes`."""
+    order = []
+    rc = read_call[:n_reads].cpu().tolist()
+    j, n_r = 0, reads.shape[0]
+    for ci in range(n_calls):
+        while j < n_reads and rc[j] == ci:
+            order.append(j)
+            j += 1
+        order += [n_r + per_call * ci + k for k in range(per_call)]
+    q = type(reads)(*[torch.cat([getattr(reads, f.name), getattr(writes, f.name)])
+                      for f in dataclasses.fields(reads)])
+    return q, order
+
+
+def memory_thread(v, w, code_store: dict, limits, device, times=None):
+    """The memory thread after one EraVM run: main_vm over the run, the
+    decommit sorter, the code unpacker on its result queue, the keccak,
+    sha256 and ecrecover circuits, and ram_permutation over the union (in
+    `_thread_order`).  `code_store` is the program's ({code hash: words});
+    `limits` (unpacker and sha256 rounds, keccak blocks, decommit sorter
+    rows, ram rows) are the instance sizes: each circuit's `max_*` is the
+    next multiple of its limit, ecrecover one instance of the call count.
+
+    Returns (results: circuit -> (witness, residuals, compact forms),
+    handoffs, counts)."""
+    round_limit, block_limit, sorter_limit, ram_limit = limits
+    out, handoffs = {}, {}
+    dw = vm.prepare_device_witness(w, device=device)
+    out["main_vm"] = (dw, stage(times, "main_vm eval",
+                                lambda: vm.eval_constraints(dw, len(w["ts"]) - 1)), None)
+    circuit = _circuits(out, times)
+
+    # type 2: the decommit sorter over the boot push and the VM's requests
+    rows = block_rows(v)
+    cw = _decommit_sorter(circuit, rows, sorter_limit, device)
+
+    # type 3: the unpacker on the sorter's result queue, from the VM's last memory state
+    vm_final = gf.from_u64(np.asarray(w["mem_q_state"][-1], np.uint64))
+    uniq = soa_rows(cw.result_items, cw.result_add)
+    store = {**code_store, v.boot_code_hash: v.code_words}
+    n_rounds = sum(((int(r["code_hash"]) >> 224 & 0xFFFF) + 1) // 2 for r in uniq)
+    ucfg = cu.CodeUnpackerConfig(max_rounds=_ceil_to(n_rounds, round_limit))
+    uw = circuit("code_unpacker",
+                 lambda: cu.generate_witness(uniq, store, ucfg, mem_init_state=vm_final,
+                                             device=device),
+                 lambda x: cu.eval_constraints(x, ucfg),
+                 lambda x: cu.instance_compact_forms(x, ucfg, round_limit))
+    total = cw.execute.shape[0]
+    handoffs["decommit_sorter_to_unpacker"] = (
+        _same(uw.request_chain[-1], cw.result_chain[total + 1])
+        and uw.num_requests == int(cw.result_count[total]))
+    handoffs["vm_to_unpacker"] = _same(uw.mem_chain[0], vm_final)
+    parts = [[dict(r) for r in v.initial_mem_rows], v.memory_tape,
+             (uw.writes, torch.nonzero(uw.write_execute).flatten())]
+    thread = uw.mem_chain[-1]
+    counts = dict(decommits=len(rows["dec"]), unique_codes=len(uniq), unpacker_rounds=n_rounds)
+
+    calls, memory = v.precompile_calls, v.precompile_memory
+
+    # type 5, then 6, then 7, each continuing the thread
+    kcalls = calls["keccak"]
+    if kcalls:
+        spans = [kc._call_span(c, memory) for c in kcalls]
+        n_blocks = sum(len(p) // kc.RATE + 1 for _, _, p in spans)
+        n_reads = sum(len(wds) for _, wds, _ in spans)
+        kcfg = kc.KeccakRoundFunctionConfig(max_blocks=_ceil_to(n_blocks, block_limit),
+                                            max_reads=n_reads)
+        init = thread
+        kw = circuit("keccak256",
+                     lambda: kc.generate_witness(kcalls, memory, kcfg, mem_init_state=init,
+                                                 device=device),
+                     lambda x: kc.eval_constraints(x, kcfg),
+                     lambda x: kc.instance_compact_forms(x, kcfg, block_limit))
+        handoffs["thread_to_keccak256"] = _same(kw.mem_chain[0], thread)
+        parts.append(_thread_order(kw.reads, kw.read_call, n_reads, kw.writes, 1, len(kcalls)))
+        thread = kw.mem_chain[-1]
+        counts.update(keccak_calls=len(kcalls), keccak_blocks=n_blocks)
+    scalls = calls["sha256"]
+    if scalls:
+        rounds = [(int(c["key"]) >> 192) & 0xFFFFFFFF for c in scalls]
+        scfg = sh.Sha256RoundFunctionConfig(max_rounds=_ceil_to(sum(rounds), round_limit))
+        init = thread
+        sw = circuit("sha256",
+                     lambda: sh.generate_witness(scalls, memory, scfg, mem_init_state=init,
+                                                 device=device),
+                     lambda x: sh.eval_constraints(x, scfg),
+                     lambda x: sh.instance_compact_forms(x, scfg, round_limit))
+        handoffs["thread_to_sha256"] = _same(sw.mem_chain[0], thread)
+        read_call = sw.round_call.repeat_interleave(2)
+        parts.append(_thread_order(sw.reads, read_call, 2 * sum(rounds), sw.writes, 1,
+                                   len(scalls)))
+        thread = sw.mem_chain[-1]
+        counts.update(sha256_calls=len(scalls), sha256_rounds=sum(rounds))
+    ecalls = calls["ecrecover"]
+    if ecalls:
+        ecfg = ecr.EcrecoverConfig(max_calls=len(ecalls))
+        init = thread
+        ew = circuit("ecrecover",
+                     lambda: ecr.generate_witness(ecalls, memory, ecfg, mem_init_state=init,
+                                                  device=device),
+                     lambda x: ecr.eval_constraints(x, ecfg),
+                     lambda x: ecr.instance_compact_form(x, ecfg))
+        handoffs["thread_to_ecrecover"] = _same(ew.mem_chain[0], thread)
+        n_ec = len(ecalls)
+        read_call = torch.arange(4 * n_ec, device=ew.reads.timestamp.device) // 4
+        parts.append(_thread_order(ew.reads, read_call, 4 * n_ec, ew.writes, 2, n_ec))
+        thread = ew.mem_chain[-1]
+        counts.update(ecrecover_calls=n_ec,
+                      ecrecover_failed=n_ec - int(ew.scalars["call_valid"].sum()))
+
+    # type 8: ram_permutation over the union; its unsorted tail closes the thread
+    rcfg = ram.RamPermutationConfig(limit=ram_limit)
+
+    def ram_witness():
+        unsorted = memory_tapes(parts)
+        order = np.lexsort((unsorted["timestamp"], unsorted["index"], unsorted["memory_page"]))
+        return ram.generate_witness_host_tapes(
+            unsorted, {k: x[order] for k, x in unsorted.items()}, rcfg, device=device)
+
+    rw = circuit("ram_permutation", ram_witness, lambda x: ram.eval_constraints(x, rcfg),
+                 lambda x: ram.instance_compact_forms(x, rcfg))
+    handoffs["memory_thread_closes"] = _same(rw.chain_unsorted[rw.n], thread)
+    counts.update(ram_rows=rw.n)
+    return out, handoffs, counts

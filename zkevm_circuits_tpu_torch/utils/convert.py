@@ -15,11 +15,15 @@ compare with `==`.
 
 The log and decommit circuits' witnesses (`decommit_sorter_witness_from_numpy`,
 `demux_witness_from_numpy`, `storage_validity_witness_from_numpy`,
-`log_sorter_witness_from_numpy`, `linear_hasher_witness_from_numpy`) and a
-batch of compact forms (`compact_forms_from_numpy`, the VM's included) are
-built the same way from a dict of numpy arrays with the JAX witness's field
-names: field elements as u64, u32 values as any integer dtype, flags as bool,
-a batch of queries as a dict of its columns, the dict-valued fields as dicts.
+`log_sorter_witness_from_numpy`, `linear_hasher_witness_from_numpy`), the
+memory-thread and storage-tree circuits' (`code_unpacker_witness_from_numpy`,
+`keccak_round_witness_from_numpy`, `sha256_round_witness_from_numpy`,
+`ecrecover_witness_from_numpy`, `storage_application_witness_from_numpy`,
+`eip_4844_witness_from_numpy`) and a batch of compact forms
+(`compact_forms_from_numpy`, the VM's included) are built the same way from a
+dict of numpy arrays with the JAX witness's field names: field elements as
+u64, u32 values as any integer dtype, flags as bool, a batch of queries as a
+dict of its columns, the dict-valued fields as dicts, the counts as ints.
 `witness_to_numpy` is the inverse, field elements as u64 and the rest as
 int64 / bool, so that two witnesses compare by value.
 """
@@ -36,6 +40,8 @@ from ..base_structures.log_query import LogQueries
 from ..base_structures.memory_query import MemoryQueries
 from ..models import demux_log_queue, linear_hasher, log_sorter, sort_decommittment_requests
 from ..models import storage_validity
+from ..models import (code_unpacker_sha256, ecrecover, eip_4844, keccak256_round_function,
+                      sha256_round_function, storage_application)
 from ..models.ram_permutation import RamPermutationWitness
 from ..models.vm.circuit import prepare_device_witness as vm_witness_from_numpy  # noqa: F401
 from ..ops import fri, gf
@@ -82,18 +88,26 @@ def _tensor(value, device, field: bool) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.int64)).to(device)
 
 
+_COUNTS = ("n", "num_calls", "num_requests", "num_queries")
+_QUERY_TYPES = (LogQueries, DecommitQueries, MemoryQueries)
+
+
 def _from_numpy(cls, fields: dict, device, field_names=(), query_names=(), queries=LogQueries):
-    """A witness dataclass from numpy fields: `n` an int, the `query_names`
-    batches of `queries` from their column dicts, the `field_names` (or the
-    dict fields they name) field elements, the rest u32 or bool tensors."""
+    """A witness dataclass from numpy fields: the counts (`n`, `num_calls`,
+    ...) ints, the `query_names` batches of `queries` from their column dicts
+    (`query_names` a dict of name -> query class where they differ), the
+    `field_names` (or the dict fields they name) field elements, the rest u32
+    or bool tensors."""
     device = resolve_device(device)
+    if not isinstance(query_names, dict):
+        query_names = {name: queries for name in query_names}
     out = {}
     for f in dataclasses.fields(cls):
         v, is_field = fields[f.name], f.name in field_names
-        if f.name == "n":
+        if f.name in _COUNTS:
             out[f.name] = int(v)
         elif f.name in query_names:
-            out[f.name] = queries.from_numpy(v, device)
+            out[f.name] = query_names[f.name].from_numpy(v, device)
         elif isinstance(v, dict):
             out[f.name] = {k: _tensor(x, device, is_field) for k, x in v.items()}
         else:
@@ -141,6 +155,49 @@ def linear_hasher_witness_from_numpy(fields: dict, device=None):
                        ("encodings", "input_chain"), ("queries",))
 
 
+def sha256_round_witness_from_numpy(fields: dict, device=None):
+    """fields of a `sha256_round_function.Sha256RoundWitness`; `device` None
+    is the card."""
+    return _from_numpy(sha256_round_function.Sha256RoundWitness, fields, device,
+                       ("call_chain", "mem_chain", "mem_order_encodings"),
+                       dict(calls=LogQueries, reads=MemoryQueries, writes=MemoryQueries))
+
+
+def code_unpacker_witness_from_numpy(fields: dict, device=None):
+    """fields of a `code_unpacker_sha256.CodeUnpackerWitness`; `device` None
+    is the card."""
+    return _from_numpy(code_unpacker_sha256.CodeUnpackerWitness, fields, device,
+                       ("request_chain", "mem_chain"),
+                       dict(requests=DecommitQueries, writes=MemoryQueries))
+
+
+def keccak_round_witness_from_numpy(fields: dict, device=None):
+    """fields of a `keccak256_round_function.KeccakRoundWitness` (keccak lanes
+    as u32 halves); `device` None is the card."""
+    return _from_numpy(keccak256_round_function.KeccakRoundWitness, fields, device,
+                       ("call_chain", "mem_chain", "mem_order_encodings"),
+                       dict(calls=LogQueries, reads=MemoryQueries, writes=MemoryQueries))
+
+
+def ecrecover_witness_from_numpy(fields: dict, device=None):
+    """fields of an `ecrecover.EcrecoverWitness` (scalars, points and steps
+    as dicts of limb and flag columns); `device` None is the card."""
+    return _from_numpy(ecrecover.EcrecoverWitness, fields, device, ("call_chain", "mem_chain"),
+                       dict(calls=LogQueries, reads=MemoryQueries, writes=MemoryQueries))
+
+
+def storage_application_witness_from_numpy(fields: dict, device=None):
+    """fields of a `storage_application.StorageApplicationWitness`; `device`
+    None is the card."""
+    return _from_numpy(storage_application.StorageApplicationWitness, fields, device,
+                       ("query_chain",), ("queries",))
+
+
+def eip_4844_witness_from_numpy(fields: dict, device=None):
+    """fields of an `eip_4844.EIP4844Witness`; `device` None is the card."""
+    return _from_numpy(eip_4844.EIP4844Witness, fields, device)
+
+
 def compact_forms_from_numpy(fields: dict, device=None) -> ClosedFormInputCompactForm:
     """A batch of ClosedFormInput compact forms from its six fields (the flags
     bool, the commitments u64); `device` None is the card."""
@@ -160,7 +217,7 @@ def witness_to_numpy(witness, field_names) -> dict:
     out = {}
     for f in dataclasses.fields(witness):
         v, is_field = getattr(witness, f.name), f.name in field_names
-        if isinstance(v, (LogQueries, DecommitQueries)):
+        if isinstance(v, _QUERY_TYPES):
             out[f.name] = {q.name: arr(getattr(v, q.name), False) for q in dataclasses.fields(v)}
         elif isinstance(v, dict):
             out[f.name] = {k: arr(x, is_field) for k, x in v.items()}
