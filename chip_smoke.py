@@ -30,7 +30,10 @@ Phases, each printed on its own line:
      with the plain permutation inside (there also against the port's own
      plain version on the CPU) and at (2,048 x 512), all rows executed
      and a tenth of them not, with the thread-per-state kernel inside, and its
-     times at (2,048 x 512) and (4,096 x 512); `eval_constraints` on the card
+     times at (2,048 x 512) and (4,096 x 512); the chain kernel as a sponge at
+     the circuit STARKs' shapes (a transcript over 2 x 7,493 values, 2^7
+     leaves of 7,493 columns, 2^13 of 279) against the absorb loop on the
+     card, bit for bit, and both times; `eval_constraints` on the card
      (first run, then the mean of 3), all-true; witness seconds, rows/s,
      launches per evaluation of each kernel (the chain kernel above 0 and at
      most 2, the thread-per-state kernel not once a chain step), peak device
@@ -113,7 +116,25 @@ Phases, each printed on its own line:
      (tests/test_torch_{sha256_circuits,keccak_round,ecrecover}.py);
  18. eip_4844: two blobs of 4,096 seeded elements, witness, evaluation and
      compact-form seconds, all true, both hashes equal to a host
-     recomputation; a changed coefficient fails where the JAX package fails.
+     recomputation; a changed coefficient fails where the JAX package fails;
+ 19. circuit STARKs, small: the demux proof at the queries of
+     tests/test_demux_air.py, the Horner proof at E = 8 and a one-block
+     sha256 proof made on the card equal those made on the CPU as nested
+     ints; the keccak, blake2s and ecrecover traces, phase-2 columns and
+     constraint residuals on the card equal the CPU's, all zero;
+ 20. circuit STARKs, full width, through the verdict writers of
+     `runtime/block.py` on the data of phases 14, 17 and 18: the demux proof
+     over the log path's rows (type 4), a keccak proof of the L1 stream (13),
+     per blob the Horner proof and three keccak chains (255), the ecrecover
+     ladders of every call (7), a sha256 chain per unique unpacked code (3),
+     the first 16 calls of the sha256 and keccak precompiles (6, 5), the
+     first 2^13 blake2s compressions of storage application (10); each proof
+     made and verified on the card (demux and L1 twice, first and steady;
+     ecrecover and blake2s once): rows x columns, prove and verify seconds,
+     peak device memory,
+     each kernel's launches, every verdict true; negative probes (a rerouted
+     element, a wrong opening, a flipped digest byte or word, a changed
+     message byte, a flipped scalar bit) each rejected.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -127,6 +148,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -174,6 +196,15 @@ MEM_SMALL_LOG2_CODE_WORDS = 5
 MEM_SMALL_LIMITS = (16, 4, 16, 256)
 MEM_SMALL_BLOB = 16
 PROBE_SLOT = 5
+# the circuit STARKs: the small references' blob elements and FRI queries
+# (the CPU side's plain permutations), the precompile calls proven a type
+# (each call is a proof of its own), the storage paths' blake2s calls proven
+# (all of them, ~952 k, would be 2^24 rows x 2,902 columns)
+CIRCUIT_REF_BLOB = 8
+CIRCUIT_REF_QUERIES = 4
+CPU_REF_THREADS = 2  # the CPU references' torch threads, beside the card phases
+PRECOMPILE_PROOF_CALLS = 16
+BLAKE_PROOF_CALLS = 1 << 13
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
 # Goldilocks products: 8 full rounds x 12 lanes x 4 (x^7) + 22 partial rounds
@@ -608,6 +639,42 @@ def chain_kernel_parity(w, card, clock_hz):
     return record
 
 
+def sponge_chain_shapes(dev, card, clock_hz):
+    """The chain kernel at the sponge shapes the circuit STARKs give it
+    (`poseidon2.hash_padded` over fewer than SMALL_BATCH states): one
+    transcript absorbing a wide AIR's 2 x 7,493 OOD values, 2^7 leaves of
+    7,493 columns, 2^13 leaves of 279.  Each against the absorb loop on the
+    card (a small-batch launch an absorb) on the same inputs, bit for bit,
+    and timed against it; `hash_padded` itself takes the chained route."""
+    from zkevm_circuits_tpu_torch.ops import gf, poseidon2
+
+    rng = np.random.default_rng(7493)
+    shapes, err = [], 0
+    for states, n, what in ((1, 4 + 2 * 7493, "the transcript over 2 x 7,493 OOD values"),
+                            (1 << 7, 7493, "2^7 leaves of 7,493 columns"),
+                            (1 << 13, 279, "2^13 leaves of 279 columns")):
+        inputs = gf.from_u64(rng.integers(0, gf.MODULUS, size=(states, n), dtype=np.uint64), dev)
+        state = poseidon2.apply_length_specialization(poseidon2.empty_state((states,), dev), n)
+        chained = poseidon2.absorb_chained(inputs, state)
+        loop = poseidon2.absorb_loop(inputs, state)
+        err = max(err, max_abs_err(gf.to_u64(chained).ravel(), gf.to_u64(loop).ravel()))
+        routed = poseidon2.hash_padded(inputs)
+        if err or not torch.equal(routed, poseidon2.state_into_commitment(chained)):
+            _fail(f"chain kernel as a sponge != the absorb loop, or hash_padded not chained, "
+                  f"at {what} (max |diff| {err})")
+        rounds = -(-n // poseidon2.RATE)
+        ms = time_ms(lambda x: poseidon2.absorb_chained(x, state), inputs, 5)
+        plain_ms = time_ms(lambda x: poseidon2.absorb_loop(x, state), inputs, 1)
+        bound_ms, bound_by = chain_bound_ms(states * rounds, states * rounds, states, clock_hz)
+        what = f"sponge: {what} ({states} x {rounds} absorbs)"
+        print(f"timing: chain kernel, {what}: {ms:.4f} ms, the absorb loop through the "
+              f"small-batch kernel {plain_ms:.4f} ms, equal bit for bit; bound {bound_ms:.4f} ms "
+              f"by {bound_by}, {100 * bound_ms / ms:.1f} % of it reached [{card}]", flush=True)
+        shapes.append(dict(what=what, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           max_abs_err=err))
+    return shapes
+
+
 def ram_eval_full(dev, card, w, cfg, witness_s):
     import dataclasses
 
@@ -758,10 +825,10 @@ def _range_lookup(log_rows, seed):
     return table, table[:, picks]
 
 
-def sorter_full_small(dev):
+def _sorter_reference(d):
     """The sorter full proof, the carried compact-commitment proofs and a
-    logUp proof made on the card equal those made on the CPU (the CPU side is
-    held to the JAX package by tests/test_torch_sorter_full_slow.py)."""
+    logUp proof at small sizes on device `d` (None: the card), as nested
+    ints."""
     from zkevm_circuits_tpu_torch.models import ram_permutation as ram
     from zkevm_circuits_tpu_torch.prover import logup, pipeline
     from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
@@ -772,31 +839,38 @@ def sorter_full_small(dev):
     tapes = build_tapes_np(n)
     cfg = ram.RamPermutationConfig(limit=n // 2)
     table, queries = _range_lookup(LOG2_LOGUP_REF_ROWS, 8)
-    sides = []
-    for d in (None, torch.device("cpu")):  # None: the entry points pick the card
-        w = ram.generate_witness_host_tapes(*tapes, cfg, device=d)
-        ok, full = pipeline.prove_sorter_full(w)
-        if not ok:
-            _fail(f"2^{LOG2_SORTER_REF_ROWS}-row sorter full proof on {w.execute.device} "
-                  f"did not verify")
-        carried = rp.make_carried_proofs(ram.instance_compact_forms(w, cfg))
-        lproof, lparams = logup.prove_lookup(table, queries, device=d)
-        if not logup.verify_lookup(lproof, table, lparams):
-            _fail(f"2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on {w.execute.device} did not verify")
-        if full.gp_proof.q_cap.device.type != w.execute.device.type or \
-                lproof.q_cap.device.type != w.execute.device.type:
-            _fail(f"proofs made with device={d} lie elsewhere")
-        sides.append(dict(sorter=_sorter_full_ints(full),
-                          carried=[proof_to_ints(cp.proof) for cp in carried],
-                          finals=[cp.final_state.tolist() for cp in carried],
-                          logup=proof_to_ints(lproof)))
-    for key in sides[0]:
-        if sides[0][key] != sides[1][key]:
+    w = ram.generate_witness_host_tapes(*tapes, cfg, device=d)
+    ok, full = pipeline.prove_sorter_full(w)
+    if not ok:
+        _fail(f"2^{LOG2_SORTER_REF_ROWS}-row sorter full proof on {w.execute.device} "
+              f"did not verify")
+    carried = rp.make_carried_proofs(ram.instance_compact_forms(w, cfg))
+    lproof, lparams = logup.prove_lookup(table, queries, device=d)
+    if not logup.verify_lookup(lproof, table, lparams):
+        _fail(f"2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on {w.execute.device} did not verify")
+    if full.gp_proof.q_cap.device.type != w.execute.device.type or \
+            lproof.q_cap.device.type != w.execute.device.type:
+        _fail(f"proofs made with device={d} lie elsewhere")
+    return dict(sorter=_sorter_full_ints(full),
+                carried=[proof_to_ints(cp.proof) for cp in carried],
+                finals=[cp.final_state.tolist() for cp in carried],
+                logup=proof_to_ints(lproof))
+
+
+def sorter_full_small(dev, reference):
+    """The sorter full proof, the carried compact-commitment proofs and a
+    logUp proof made on the card equal those made on the CPU (the CPU side,
+    from `start_cpu_references`, is held to the JAX package by
+    tests/test_torch_sorter_full_slow.py)."""
+    card = _sorter_reference(None)  # None: the entry points pick the card
+    cpu = _cpu_reference(reference, "sorter")
+    for key in card:
+        if card[key] != cpu[key]:
             _fail(f"sorter full small: {key} made on the card differs from the CPU's")
     print(f"sorter full small: 2^{LOG2_SORTER_REF_ROWS} rows in 2 instances: the sorter full "
-          f"proof (grand product + 2 chain STARKs), {len(sides[0]['carried'])} compact-commitment "
-          f"proofs and the 2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on the card == on the CPU",
-          flush=True)
+          f"proof (grand product + 2 chain STARKs), {len(card['carried'])} compact-commitment "
+          f"proofs and the 2^{LOG2_LOGUP_REF_ROWS}-row logUp proof on the card == on the CPU "
+          f"(the CPU's made in a process of its own)", flush=True)
 
 
 def _leaf(forms, carried):
@@ -1303,7 +1377,10 @@ def log_path_full(dev, card):
     got = _expect(sa.eval_constraints(forged, sa.StorageApplicationConfig(aw.row_execute.shape[0])),
                   want, "storage path sibling")
     print(f"storage application negative probe: a changed path sibling fails {got}", flush=True)
-    return launches
+    # what the circuit STARKs of types 4, 10 and 13 prove
+    stark_inputs = dict(log_rows=block.block_rows(v)["logs"], hw=out["linear_hasher"][0],
+                        l1_hash=digest, aw=aw)
+    return launches, stark_inputs
 
 
 def event_tapes(n_rows, seed):
@@ -1946,7 +2023,11 @@ def memory_thread_full(dev, card):
     got = memory_probes(out, MEM_LIMITS)
     print("memory thread negative probes: " + "; ".join(f"{k} fails {x}" for k, x in got.items()),
           flush=True)
-    return launches
+    # what the circuit STARKs of types 3, 5, 6 and 7 prove
+    stark_inputs = dict(uw=out["code_unpacker"][0], sw=out["sha256"][0], kw=out["keccak256"][0],
+                        ew=out["ecrecover"][0], kcalls=v.precompile_calls["keccak"],
+                        memory=v.precompile_memory)
+    return launches, stark_inputs
 
 
 def eip_4844_full(dev, card):
@@ -1956,13 +2037,14 @@ def eip_4844_full(dev, card):
     from zkevm_circuits_tpu_torch.runtime import block
 
     cfg = e44.EIP4844Config()
-    times, hashes = {}, []
+    times, hashes, blobs = {}, [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.reset_counts()
     for b in range(2):
         chunks, vh = blob_inputs(cfg.elements, 100 + b)
         bw = block.stage(times, f"blob {b} witness", lambda: e44.generate_witness(chunks, vh, cfg))
+        blobs.append((bw, chunks, vh, cfg.elements))
         res = block.stage(times, f"blob {b} eval", lambda: e44.eval_constraints(bw, cfg))
         block.stage(times, f"blob {b} compact", lambda: e44.instance_compact_form(bw, cfg))
         if _bad(res) or bw.chunks.device.type != dev.type:
@@ -1981,6 +2063,313 @@ def eip_4844_full(dev, card):
           + f"; all residuals true; linear and output hashes == the host's (output {hashes}); "
           f"a changed coefficient fails {probe}; Poseidon2 launches {launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]", flush=True)
+    return launches, blobs
+
+
+def _air_residuals(air, cols, public, ch):
+    """`air_common.residuals` of the columns as one u64 array, zero where
+    every constraint holds."""
+    from zkevm_circuits_tpu_torch.prover.air_common import residuals
+
+    return np.concatenate([v.reshape(-1) for v in residuals(air, cols, public, ch).values()])
+
+
+def _stark_params(log_n):
+    """The small references' pinned params: few queries, so that the CPU
+    side takes seconds."""
+    from zkevm_circuits_tpu_torch.prover.stark import StarkParams
+
+    return StarkParams(log_n=log_n, num_queries=CIRCUIT_REF_QUERIES)
+
+
+def _circuit_reference(d):
+    """The circuit STARKs at small sizes on device `d`: the demux proof at
+    the queries of tests/test_demux_air.py, the Horner proof at E = 8 and a
+    one-block sha256 proof (each verified), as nested ints; for keccak,
+    blake2s and ecrecover (a CPU proof takes minutes) the traces with their
+    phase-2 columns and the constraint residuals, as u64 arrays."""
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+    from zkevm_circuits_tpu_torch.models import ecrecover as ecr
+    from zkevm_circuits_tpu_torch.models import eip_4844 as e44
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.ops import secp256k1 as ec
+    from zkevm_circuits_tpu_torch.ops.keccak import keccak256_ref
+    from zkevm_circuits_tpu_torch.prover import (blake2s_air, demux_air, ecrecover_air,
+                                                 horner_air, keccak_air, sha256_air)
+    from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+
+    # tests/test_demux_air.py's stream: one element a family and a
+    # porter-shard storage log (routes nowhere)
+    base = dict(address=0x8002, rw_flag=True, rollback=False, is_service=False, shard_id=0)
+    qs = [dict(base, key=5, read_value=1, written_value=2, aux_byte=sp.STORAGE_AUX_BYTE,
+               tx_number_in_block=0, timestamp=21),
+          dict(base, key=6, read_value=0, written_value=3, aux_byte=sp.EVENT_AUX_BYTE,
+               is_service=True, tx_number_in_block=1, timestamp=25),
+          dict(base, key=7, read_value=0, written_value=4, aux_byte=sp.L1_MESSAGE_AUX_BYTE,
+               tx_number_in_block=1, timestamp=29)]
+    qs += [dict(base, address=a, key=77 << 128, read_value=0, written_value=0, rw_flag=False,
+                aux_byte=sp.PRECOMPILE_AUX_BYTE, tx_number_in_block=2, timestamp=33)
+           for a in (sp.KECCAK256_PRECOMPILE_FORMAL_ADDRESS, sp.SHA256_PRECOMPILE_FORMAL_ADDRESS,
+                     sp.ECRECOVER_PRECOMPILE_FORMAL_ADDRESS)]
+    qs.append(dict(base, key=9, read_value=0, written_value=1, aux_byte=sp.STORAGE_AUX_BYTE,
+                   shard_id=1, tx_number_in_block=3, timestamp=37))
+    chunks, vh = blob_inputs(5, 0x4844)
+    blocks = np.random.default_rng(3).integers(0, 1 << 32, size=(1, 16), dtype=np.uint64)
+    cfg = e44.EIP4844Config(elements=CIRCUIT_REF_BLOB)
+    bw = e44.generate_witness(chunks, vh, cfg, device=d)
+    pub = dict(E=cfg.elements, chunks=bw.chunks.cpu().numpy(),
+               truncated=bw.truncated.cpu().numpy(), opening_be=bw.opening_be.cpu().numpy())
+    runs = dict(
+        demux=(lambda: demux_air.prove_demux(qs, _stark_params(8), device=d),
+               lambda p, _, prm: demux_air.verify_demux(p, qs, prm)),
+        horner=(lambda: horner_air.prove_horner(bw, cfg.elements, _stark_params(8), device=d),
+                lambda p, _, prm: horner_air.verify_horner(p, pub, prm)),
+        sha256=(lambda: sha256_air.prove_sha256_blocks(blocks, _stark_params(6), device=d),
+                lambda p, dw, prm: sha256_air.verify_sha256_blocks(p, blocks, dw, prm)))
+    got = {}
+    for name, (prove_fn, verify_fn) in runs.items():
+        out = prove_fn()
+        if out[0].q_cap.device.type != d.type or not verify_fn(*out):
+            _fail(f"{name} small proof on {d}: not on its device, or rejected")
+        got[name] = proof_to_ints(out[0])
+
+    # keccak, blake2s, ecrecover: traces, phase 2 and residuals
+    h = int.from_bytes(keccak256_ref(b"zk block"), "big")
+    r, s, recid = ec.sign(h, 0xC0FFEE, 0x12345)
+    call = dict(address=0x1, key=(2 << 64) | (7 << 128) | (9 << 160), read_value=0,
+                written_value=0, rw_flag=False, aux_byte=4, rollback=False, is_service=True,
+                shard_id=0, tx_number_in_block=0, timestamp=100)
+    mem = {(7, 0): h.to_bytes(32, "big"), (7, 1): recid.to_bytes(32, "big"),
+           (7, 2): r.to_bytes(32, "big"), (7, 3): s.to_bytes(32, "big")}
+    gamma = 0x1234567
+    msgs = [b"\xaa" * 64, bytes(range(40))]
+    for name, build, air in (
+            ("keccak", lambda: keccak_air.build_keccak_trace(bytes(range(200)), device=d),
+             keccak_air.keccak_air()),
+            ("blake2s", lambda: blake2s_air.build_blake2s_trace(msgs, device=d),
+             blake2s_air.blake2s_air())):
+        phase1, fixed, digests, build_phase2, _ = build()
+        t2 = build_phase2(None, (gamma,))
+        rlc = (keccak_air.message_rlc(bytes(range(200)), gamma) if name == "keccak" else
+               blake2s_air.batch_rlc(blake2s_air.records_from_calls(msgs, digests), gamma))
+        pub = np.array(([] if name == "blake2s" else list(np.asarray(digests, np.uint64)))
+                       + [rlc], np.uint64)
+        cols = torch.cat([fixed, phase1, t2])
+        got[name] = (gf.to_u64(cols), _air_residuals(air, cols, gf.from_u64(pub, d), (gamma,)))
+    ew = ecr.generate_witness([call], mem, ecr.EcrecoverConfig(max_calls=1), device=d)
+    fixed, phase1, _ = ecrecover_air.build_ecrecover_trace(ew, device=d)
+    ch = (0x89ABCDEF, gamma)
+    t2 = ecrecover_air._build_phase2(torch.cat([fixed, phase1]), ch)
+    cp = ecrecover_air.calls_public_from_witness(ew)
+    pub = gf.from_u64(np.array([ecrecover_air.records_rlc(ecrecover_air.ladder_records(cp),
+                                                          gamma)], np.uint64), d)
+    cols = torch.cat([fixed, phase1, t2])
+    got["ecrecover"] = (gf.to_u64(cols), _air_residuals(ecrecover_air.ecrecover_air(), cols, pub,
+                                                        ch))
+    return got
+
+
+def _cpu_references(conn):
+    """The CPU sides of the sorter-full and circuit-STARK small references,
+    in a process of their own (minutes of plain permutations): each result
+    is sent when it is made, while the card phases run."""
+    torch.set_num_threads(CPU_REF_THREADS)
+    for name, make in (("sorter", _sorter_reference), ("circuits", _circuit_reference)):
+        try:
+            conn.send((name, "ok", make(torch.device("cpu"))))
+        except Exception:  # the boundary of the child: the parent reports it
+            conn.send((name, "error", traceback.format_exc()))
+    conn.close()
+
+
+def start_cpu_references():
+    """Start the small references' CPU side; `sorter_full_small` and
+    `circuit_starks_small` read its results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_cpu_references, args=(child,), daemon=True)
+    proc.start()
+    child.close()
+    return dict(proc=proc, conn=parent, started=time.perf_counter())
+
+
+def _cpu_reference(reference, name):
+    """The CPU side's result `name`, waiting for it."""
+    got, status, value = reference["conn"].recv()
+    if got != name or status != "ok":
+        _fail(f"the CPU reference {got}: {status} {value if status != 'ok' else ''}")
+    if name == "circuits":
+        reference["proc"].join()
+    return value
+
+
+def circuit_starks_small(dev, reference):
+    """The circuit STARKs at small sizes, the card's against the CPU's (from
+    `start_cpu_references`): the three small proofs equal as nested ints;
+    the keccak, blake2s and ecrecover traces, phase-2 columns and residuals
+    equal, the residuals all zero."""
+    t0 = time.perf_counter()
+    card = _circuit_reference(dev)
+    card_s = time.perf_counter() - t0
+    cpu = _cpu_reference(reference, "circuits")
+    waited = time.perf_counter() - t0 - card_s
+    for name in ("demux", "horner", "sha256"):
+        if card[name] != cpu[name]:
+            _fail(f"{name}: the small proof on the card differs from the CPU proof")
+    for name in ("keccak", "blake2s", "ecrecover"):
+        (cols_a, res_a), (cols_b, res_b) = card[name], cpu[name]
+        if not np.array_equal(cols_a, cols_b) or not np.array_equal(res_a, res_b) or res_a.any():
+            _fail(f"{name}: the card's trace, phase 2 or residuals differ from the CPU's, or "
+                  f"a residual is not zero")
+    print(f"circuit STARKs, small: demux (8 queries), Horner (E = {CIRCUIT_REF_BLOB}) and sha256 "
+          f"(1 block) proofs on the card == on the CPU as nested ints "
+          f"({CIRCUIT_REF_QUERIES} queries); keccak (2 blocks), blake2s (2 calls) and ecrecover "
+          f"(1 call) traces, phase-2 columns and residuals on the card == on the CPU, all "
+          f"residuals zero (the card's side {card_s:.1f} s; the CPU's in a process of its own "
+          f"since {time.perf_counter() - reference['started']:.1f} s ago, waited for "
+          f"{waited:.1f} s)", flush=True)
+
+
+def _report(rec, card, steady=None):
+    """One proof's line: rows x columns, prove and verify seconds (first,
+    and steady when a second run was made), peak memory, launches."""
+    when = (f"prove {rec['prove_s']:.3f} / {steady['prove_s']:.3f} s, verify "
+            f"{rec['verify_s']:.3f} / {steady['verify_s']:.3f} s (first / steady)"
+            if steady is not None else
+            f"prove {rec['prove_s']:.3f} s, verify {rec['verify_s']:.3f} s")
+    print(f"  {rec['name']}: {rec['rows']} x {rec['cols']} ({int(rec['rows']).bit_length() - 1}"
+          f" log2 rows); {when}; peak {rec['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{rec['launches']}; verdict {rec['ok']} [{card}]", flush=True)
+
+
+def _summary(name, recs, card):
+    """One line for a run of same-shape proofs (per-call types 3, 5, 6)."""
+    first, rest = recs[0], recs[1:] or recs[:1]
+    sizes = sorted({r["rows"] for r in recs})
+    launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+    print(f"  {name}: {len(recs)} proofs of {sizes} rows x {recs[0]['cols']}; the first prove "
+          f"{first['prove_s']:.3f} s verify {first['verify_s']:.3f} s; the others prove "
+          f"{min(r['prove_s'] for r in rest):.3f}-{max(r['prove_s'] for r in rest):.3f} s, verify "
+          f"{min(r['verify_s'] for r in rest):.3f}-{max(r['verify_s'] for r in rest):.3f} s; "
+          f"peak {max(r['peak_bytes'] for r in recs) / 2**30:.2f} GiB; launches {launches}; "
+          f"verdicts all {all(r['ok'] for r in recs)} [{card}]", flush=True)
+
+
+def circuit_starks_full(dev, card, log_in, mem_in, blobs):
+    """Phase (e): the block's circuit STARKs at full width, through the
+    verdict writers of `runtime/block.py`, on the data of phases (a), (c)
+    and (d): demux over the log path's rows, keccak over the L1 stream, per
+    blob the Horner proof and three keccak chains, the ecrecover ladders of
+    every call, a sha256 chain per unique unpacked code, the first calls of
+    the sha256 and keccak precompiles, the first 2^13 blake2s compressions of
+    storage application.  Each proof is made and verified on the card; the
+    demux and L1 proofs run twice (first, steady; the other types' steady
+    times are their later proofs of one shape: blob 1, codes 1-11, calls
+    1-15).  ecrecover and blake2s run once, for the script's 600 s: their
+    reruns took 53-58 s and their first and steady times differed by less
+    than 11 % (PERF.md).  Then a negative probe on each AIR."""
+    from zkevm_circuits_tpu_torch.isa import system_params as sp
+    from zkevm_circuits_tpu_torch.models import storage_application as sa
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.prover import (blake2s_air, demux_air, ecrecover_air,
+                                                 horner_air, keccak_air, sha256_air)
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    t_phase = time.perf_counter()
+    KERNEL.reset_counts()
+    verdicts, logs = {}, {}
+
+    def write(key, fn, twice=False):
+        logs[key] = []
+        fn(logs[key])
+        if twice:
+            logs[key + " steady"] = []
+            fn(logs[key + " steady"])
+
+    write("demux", lambda lg: block.demux_verdict(log_in["log_rows"], None, verdicts, log=lg),
+          twice=True)
+    write("l1", lambda lg: block.l1_verdict(log_in["hw"], log_in["l1_hash"], None, verdicts,
+                                            log=lg), twice=True)
+    write("blobs", lambda lg: block.blob_verdict(blobs, None, verdicts, log=lg))
+    write("ecrecover", lambda lg: block.ecrecover_verdict(mem_in["ew"], None, verdicts, log=lg))
+    write("unpacker", lambda lg: block.code_unpacker_verdict(mem_in["uw"], None, verdicts,
+                                                             log=lg))
+    write("sha256", lambda lg: block.sha256_verdict(mem_in["sw"], None, verdicts,
+                                                    limit=PRECOMPILE_PROOF_CALLS, log=lg))
+    write("keccak", lambda lg: block.keccak_verdict(mem_in["kw"], mem_in["kcalls"],
+                                                    mem_in["memory"], None, verdicts,
+                                                    limit=PRECOMPILE_PROOF_CALLS, log=lg))
+    write("blake2s", lambda lg: block.storage_paths_verdict(log_in["aw"], None, verdicts,
+                                                            limit=BLAKE_PROOF_CALLS, log=lg))
+    torch.cuda.synchronize()
+    launches = KERNEL.counts()
+    phase_s = time.perf_counter() - t_phase
+    print(f"circuit STARKs: verdicts {verdicts}; {sum(len(x) for x in logs.values())} proofs "
+          f"made and verified on the card in {phase_s:.1f} s; Poseidon2 launches over the phase "
+          f"{launches} [{card}]", flush=True)
+    for key in ("demux", "l1", "ecrecover", "blake2s"):
+        _report(logs[key][0], card, logs[key + " steady"][0] if key + " steady" in logs else None)
+    for rec in logs["blobs"]:
+        _report(rec, card)
+    _summary("sha256 (3), a proof per unique code", logs["unpacker"], card)
+    _summary(f"sha256 (6), the first {PRECOMPILE_PROOF_CALLS} calls", logs["sha256"], card)
+    _summary(f"keccak (5), the first {PRECOMPILE_PROOF_CALLS} calls", logs["keccak"], card)
+    if not all(verdicts.values()) or sorted(verdicts) != [3, 4, 5, 6, 7, 10, 13, 255]:
+        _fail(f"circuit STARKs: verdicts {verdicts}")
+    for name in ("permutation", "permutation_small"):
+        if launches[name] <= 0:
+            _fail(f"the circuit STARKs launched the {name} kernel no time")
+
+    # negative probes, each must verify false
+    probes = {}
+    rec = logs["demux"][0]
+    rows = [dict(q) for q in log_in["log_rows"]]
+    k = next(i for i, q in enumerate(rows) if q["aux_byte"] == sp.STORAGE_AUX_BYTE)
+    rows[k] = dict(rows[k], aux_byte=sp.EVENT_AUX_BYTE)
+    probes["a rerouted element (demux)"] = demux_air.verify_demux(rec["proof"], rows,
+                                                                  rec["params"])
+    bw, chunks, vh, E = blobs[0]
+    horner = next(r for r in logs["blobs"] if r["name"].startswith("horner"))
+    opening = bw.opening_be.cpu().numpy().copy()
+    opening[-1] ^= 1
+    data = list(chunks) + [b"\x00" * 31] * (E - len(chunks))
+    probes["a wrong opening (Horner)"] = horner_air.verify_horner(
+        horner["proof"], dict(E=E, chunks=np.array([list(c) for c in data], np.uint64),
+                              truncated=bw.truncated.cpu().numpy(), opening_be=opening),
+        horner["params"])
+    rec = logs["l1"][0]
+    stream = log_in["hw"].msg_bytes[:log_in["hw"].n].cpu().numpy().astype(np.uint8).tobytes()
+    bad = bytearray(log_in["l1_hash"])
+    bad[0] ^= 1
+    probes["a flipped digest byte (keccak 13)"] = keccak_air.verify_keccak256(
+        rec["proof"], stream, bytes(bad), rec["params"])
+    rec = logs["unpacker"][0]
+    uw = mem_in["uw"]
+    sel = (uw.round_execute.cpu().numpy().astype(bool)
+           & (uw.round_request.cpu().numpy() == 0))
+    blocks = uw.block_words.cpu().numpy().astype(np.uint64)[sel]
+    dig = uw.state_after.cpu().numpy().astype(np.uint64)[
+        sel & uw.round_is_last.cpu().numpy().astype(bool)][-1].copy()
+    dig[0] ^= 1
+    probes["a flipped digest word (sha256 3)"] = sha256_air.verify_sha256_blocks(
+        rec["proof"], blocks, dig, rec["params"])
+    rec = logs["blake2s"][0]
+    msgs, digs = sa.blake2s_calls(log_in["aw"])
+    msgs, digs = list(msgs[:BLAKE_PROOF_CALLS]), digs[:BLAKE_PROOF_CALLS]
+    msgs[7] = bytes([msgs[7][0] ^ 1]) + msgs[7][1:]
+    probes["a changed message byte (blake2s)"] = blake2s_air.verify_blake2s_batch(
+        rec["proof"], msgs, digs, rec["params"])
+    rec = logs["ecrecover"][0]
+    cp = ecrecover_air.calls_public_from_witness(mem_in["ew"])
+    i = next(j for j, c in enumerate(cp) if c.get("active"))
+    cp[i] = dict(cp[i], u2=cp[i]["u2"] ^ 1)
+    probes["a flipped scalar bit (ecrecover)"] = ecrecover_air.verify_ecrecover(
+        rec["proof"], cp, rec["params"])
+    if any(probes.values()):
+        _fail(f"circuit STARK negative probes: {probes}")
+    print("circuit STARK negative probes, each rejected: " + "; ".join(probes), flush=True)
     return launches
 
 
@@ -1995,6 +2384,9 @@ def main():
 
     from zkevm_circuits_tpu_torch.ops import poseidon2_cuda
 
+    # the CPU sides of phases 10 and 19 run beside the card phases, in a
+    # process of their own
+    reference = start_cpu_references()
     t0 = time.perf_counter()
     poseidon2_cuda.build(verbose=True)
     poseidon2_cuda.KERNEL.lib(dev)
@@ -2010,26 +2402,31 @@ def main():
     ram_eval_small(dev)
     w, cfg, witness_s = ram_witness_full(dev)
     records["chain_segmented"] = chain_kernel_parity(w, card, clock_hz)
+    records["chain_segmented"]["shapes"] += sponge_chain_shapes(dev, card, clock_hz)
     launches_ram_eval = ram_eval_full(dev, card, w, cfg, witness_s)
     del w
     torch.cuda.empty_cache()
     vm_eval_small(dev)
     launches_vm_eval = vm_eval_full(dev, card)
-    sorter_full_small(dev)
+    sorter_full_small(dev, reference)
     w, full, forms, carried, launches_sorter_full = sorter_full_path(dev, card)
     sorter_full_probes(w, full, forms, carried)
     del w, full, forms, carried
     torch.cuda.empty_cache()
     launches_logup = logup_path(dev, card)
     log_path_small(dev)
-    launches_log_path = log_path_full(dev, card)
+    launches_log_path, log_inputs = log_path_full(dev, card)
     torch.cuda.empty_cache()
     launches_log_sorter = log_sorter_full(dev, card)
     torch.cuda.empty_cache()
     memory_thread_small(dev)
-    launches_memory_thread = memory_thread_full(dev, card)
+    launches_memory_thread, mem_inputs = memory_thread_full(dev, card)
     torch.cuda.empty_cache()
-    launches_eip_4844 = eip_4844_full(dev, card)
+    launches_eip_4844, blobs = eip_4844_full(dev, card)
+    circuit_starks_small(dev, reference)
+    launches_circuit_starks = circuit_starks_full(dev, card, log_inputs, mem_inputs, blobs)
+    del log_inputs, mem_inputs, blobs
+    torch.cuda.empty_cache()
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
@@ -2042,7 +2439,8 @@ def main():
                        launches_log_path=launches_log_path[key],
                        launches_log_sorter=launches_log_sorter[key],
                        launches_memory_thread=launches_memory_thread[key],
-                       launches_eip_4844=launches_eip_4844[key])
+                       launches_eip_4844=launches_eip_4844[key],
+                       launches_circuit_starks=launches_circuit_starks[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

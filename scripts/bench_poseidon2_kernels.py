@@ -13,7 +13,12 @@ length of each kernel's machine code where cuobjdump is at hand), then
      `SMALL_BATCH` (ops/poseidon2_cuda.py);
   3. times the chain kernel at (2,048 x 512) and (4,096 x 512): one chain, two
      chains in one launch, two launches on one stream, two launches on two
-     streams.
+     streams;
+  4. times a sponge over 2^0 .. 2^13 states of 1 .. 64 absorbs both ways:
+     `poseidon2.absorb_chained` (one chain launch) and `poseidon2.absorb_loop`
+     (a small-batch launch an absorb), wall-clock from the host as the prover
+     sees it, after checking that they agree: the crossover sets
+     `CHAIN_SPONGE_ROUNDS` (ops/poseidon2.py).
 
 Every line carries the card's name and power limit.  Needs a CUDA card.
 """
@@ -22,13 +27,14 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from zkevm_circuits_tpu_torch.ops import gf, poseidon2_cuda  # noqa: E402
+from zkevm_circuits_tpu_torch.ops import gf, poseidon2, poseidon2_cuda  # noqa: E402
 from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import (  # noqa: E402
     chain_segmented_cuda,
     permutation_cuda,
@@ -115,6 +121,36 @@ def time_chain(dev, rng, card):
               f"{streams:.4f} ms [{card}]", flush=True)
 
 
+def wall_ms(fn, reps=REPS):
+    """mean host wall-clock ms a call, the card synchronized before and after."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / reps
+
+
+def time_sponge(dev, rng, card):
+    print("sponge, wall-clock ms a call: states, absorbs, chained (one chain launch), loop "
+          "(a permutation launch an absorb), loop / chained", flush=True)
+    for log_b in (0, 4, 8, 12, 13):
+        for rounds in (1, 2, 4, 8, 16, 32, 64):
+            inputs = gf.from_u64(rng.integers(0, P, size=(1 << log_b, 8 * rounds - 3),
+                                              dtype=np.uint64), dev)
+            state = poseidon2.apply_length_specialization(
+                poseidon2.empty_state((1 << log_b,), dev), inputs.shape[-1])
+            if not torch.equal(poseidon2.absorb_chained(inputs, state),
+                               poseidon2.absorb_loop(inputs, state)):
+                raise RuntimeError(f"chained sponge != loop at 2^{log_b} x {rounds}")
+            chained = wall_ms(lambda: poseidon2.absorb_chained(inputs, state))
+            loop = wall_ms(lambda: poseidon2.absorb_loop(inputs, state))
+            print(f"  2^{log_b} x {rounds}: {chained:.4f} {loop:.4f} {loop / chained:.2f} "
+                  f"[{card}]", flush=True)
+
+
 def sass_counts():
     """machine instructions of each kernel, as cuobjdump lists them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -147,7 +183,9 @@ def main():
     cross_check(dev, rng)
     time_permutation(dev, rng, card)
     time_chain(dev, rng, card)
-    print(f"in use: SMALL_BATCH = {poseidon2_cuda.SMALL_BATCH} [{card}]", flush=True)
+    time_sponge(dev, rng, card)
+    print(f"in use: SMALL_BATCH = {poseidon2_cuda.SMALL_BATCH}, CHAIN_SPONGE_ROUNDS = "
+          f"{poseidon2.CHAIN_SPONGE_ROUNDS} [{card}]", flush=True)
 
 
 if __name__ == "__main__":

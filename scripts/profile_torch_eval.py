@@ -5,6 +5,7 @@ on one CUDA card.
     python3 scripts/profile_torch_eval.py [log2_ram_rows] [log2_vm_cycles] [log2_prove_rows]
                                           [log2_sorter_full_rows] [log2_log_path_cycles]
                                           [log2_log_sorter_rows] [log2_memory_thread_cycles]
+                                          [log2_blake2s_calls]
 
 A size of 0 skips that part.  For ram_permutation.eval_constraints (default
 2^20 rows, chain stride 512), vm.eval_constraints (default 2^16 cycles),
@@ -35,8 +36,14 @@ sorter's survivors (`block.storage_application`).  For the memory thread
 2^16 cycles, chip_smoke.MEM_LIMITS) it prints
 each circuit's steady evaluation, one profiled window over all of them and
 one each over the ecrecover, keccak and sha256 evaluations, then a profiled
-eip_4844 evaluation of one 4096-element blob.  Every line carries the card's
-name and power limit.  Needs a CUDA card.
+eip_4844 evaluation of one 4096-element blob.  For the circuit STARKs (the
+keccak AIR over a 4096-element blob's 126,976 bytes, 2^15 rows, and the
+blake2s AIR over 2^13 seeded storage-shaped calls, 2^17 rows, by default) it
+prints each prove's stages, timed on a second run (the LDE, the Merkle
+commitments, the composition of the constraints, the OOD evaluation, the
+DEEP codeword, FRI; each ended by a synchronize), the composition's share of
+the prove, and a profiled window over one prove.  Every line carries the
+card's name and power limit.  Needs a CUDA card.
 """
 
 import os
@@ -80,8 +87,8 @@ def wall(fn, reps=3):
     return (time.perf_counter() - t0) / reps
 
 
-def profile(name, fn, card):
-    steady = wall(fn)
+def profile(name, fn, card, reps=3):
+    steady = wall(fn, reps)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -119,6 +126,62 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def _stage_timers(spent):
+    """Wrap the STARK's stages (`prover/stark.py`, `ops/fri.py:prove`) so that
+    each call's seconds, ended by a synchronize, add up in `spent`; returns
+    the function that takes the wrappers off."""
+    import functools
+
+    from zkevm_circuits_tpu_torch.ops import fri
+    from zkevm_circuits_tpu_torch.prover import stark
+
+    targets = [(stark, n) for n in ("_lde_rows", "_commit_rows", "_compose_rows",
+                                    "_barycentric", "_deep_combine")] + [(fri, "prove")]
+    saved = []
+    for mod, name in targets:
+        f = getattr(mod, name)
+
+        def g(*a, _f=f, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _f(*a, **k)
+            torch.cuda.synchronize()
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(mod, name, functools.wraps(f)(g))
+        saved.append((mod, name, f))
+
+    def restore():
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    return restore
+
+
+def circuit_airs(log_calls, card):
+    from zkevm_circuits_tpu_torch.prover import blake2s_air, keccak_air
+
+    rng = np.random.default_rng(0xB1AC)
+    blob = rng.bytes(4096 * 31)
+    calls = [rng.bytes(64 if i % 3 else 40) for i in range(1 << log_calls)]
+    for name, run in (("keccak AIR, 126,976 bytes", lambda: keccak_air.prove_keccak256(blob)),
+                      (f"blake2s AIR, 2^{log_calls} calls",
+                       lambda: blake2s_air.prove_blake2s_batch(calls))):
+        profile(f"{name}, one prove", run, card, reps=1)
+        spent = {}
+        restore = _stage_timers(spent)
+        try:
+            (_, _, params), seconds = timed(run)
+        finally:
+            restore()
+        staged = sum(spent.values())
+        print(f"{name}: 2^{params.log_n} rows, prove {seconds:.3f} s (second run); stages "
+              + "; ".join(f"{k} {v:.3f} s" for k, v in spent.items())
+              + f"; the rest (trace builders, phase 2, transcript, openings) "
+              f"{seconds - staged:.3f} s; the composition of the constraints "
+              f"{100 * spent['_compose_rows'] / seconds:.1f} % of the prove [{card}]", flush=True)
 
 
 def sorter_full(log_rows, card):
@@ -183,6 +246,7 @@ def main():
     log_path_cycles = int(sys.argv[5]) if len(sys.argv) > 5 else 16
     log_sorter_rows = int(sys.argv[6]) if len(sys.argv) > 6 else 18
     log_mem_cycles = int(sys.argv[7]) if len(sys.argv) > 7 else 16
+    log_blake_calls = int(sys.argv[8]) if len(sys.argv) > 8 else 13
     card = card_line()
     if log_ram:
         ram_eval(log_ram, card)
@@ -198,6 +262,8 @@ def main():
         log_sorter_eval(log_sorter_rows, card)
     if log_mem_cycles:
         memory_thread_eval(log_mem_cycles, card)
+    if log_blake_calls:
+        circuit_airs(log_blake_calls, card)
 
 
 def log_path_eval(log_cycles, card):

@@ -128,3 +128,27 @@ def test_memory_thread_and_storage_entry_points_raise_without_a_device_or_a_card
     w = sh.generate_witness([], {}, sh.Sha256RoundFunctionConfig(2), device="cpu")
     assert w.mem_chain.device.type == w.round_execute.device.type == "cpu"
     assert sha256.initial_state((2,), device="cpu").shape == (2, 8)
+
+
+def test_circuit_air_entry_points_raise_without_a_device_or_a_card(no_card):
+    """the six circuit AIRs' trace builders and provers, which take host data,
+    follow the same rule; their verifiers follow the proof"""
+    from zkevm_circuits_tpu_torch.prover import (blake2s_air, demux_air, ecrecover_air,
+                                                 horner_air, keccak_air, sha256_air)
+
+    calls = [
+        lambda: demux_air.demux_trace([]),
+        lambda: demux_air.prove_demux([]),
+        lambda: horner_air.fixed_cols(256, 1),
+        lambda: sha256_air.build_sha256_trace(b"abc"),
+        lambda: sha256_air.prove_sha256_blocks(np.zeros((1, 16), np.uint64)),
+        lambda: keccak_air.build_keccak_trace(b"abc"),
+        lambda: keccak_air.prove_keccak256(b""),
+        lambda: blake2s_air.build_blake2s_trace([b"abc"]),
+        lambda: ecrecover_air.fixed_cols(512),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    phase1, fixed, _, _, log_n = keccak_air.build_keccak_trace(b"abc", device="cpu")
+    assert phase1.device.type == fixed.device.type == "cpu" and log_n == 5

@@ -90,3 +90,20 @@ def test_wrapper_refuses_bad_tensors(cuda_device):
         permutation_cuda(st[:, :8].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         permutation_cuda(st.T.contiguous().T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,length", [((), 559), ((5,), 128), ((3, 100), 7493), ((1,), 121),
+                                          ((4,), 9), ((7,), 8)])
+def test_long_sponge_runs_as_one_chain_launch(cuda_device, batch, length):
+    """hash_padded over a small batch with CHAIN_SPONGE_ROUNDS absorbs or more
+    is one fused chain launch on the card, equal to the CPU's absorb loop."""
+    rng = np.random.default_rng(length)
+    vals = rng.integers(0, gf.MODULUS, size=tuple(batch) + (length,), dtype=np.uint64)
+    want = gf.to_u64(poseidon2.hash_padded(gf.from_u64(vals, "cpu")))
+    before = KERNEL.counts()
+    got = gf.to_u64(poseidon2.hash_padded(gf.from_u64(vals, cuda_device)))
+    after = KERNEL.counts()
+    np.testing.assert_array_equal(got, want)
+    chained = -(-length // poseidon2.RATE) >= poseidon2.CHAIN_SPONGE_ROUNDS
+    assert after["chain_segmented"] - before["chain_segmented"] == int(chained)

@@ -45,7 +45,9 @@ def test_port_modules_import_without_jax():
                  "models.precompile_common", "models.sha256_round_function",
                  "models.code_unpacker_sha256", "models.keccak256_round_function",
                  "models.ecrecover", "models.storage_application", "models.eip_4844",
-                 "runtime.block"):
+                 "runtime.block", "prover.air_common", "prover.demux_air",
+                 "prover.horner_air", "prover.sha256_air", "prover.keccak_air",
+                 "prover.blake2s_air", "prover.ecrecover_air"):
         assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -30,6 +30,11 @@ WIDTH = 12
 RATE = 8
 COMMITMENT_WIDTH = 4
 R_FULL = 8
+# absorbs from which `hash_padded` over fewer than SMALL_BATCH states on the
+# card runs as one fused chain launch: the crossover of the sponge table of
+# scripts/bench_poseidon2_kernels.py (on an H100 the chain is 1.04-1.31 times
+# as fast at 2 absorbs, 1.5-3 times from 4, and slower at 1, at 1-2^13 states)
+CHAIN_SPONGE_ROUNDS = 2
 R_PARTIAL = 22
 
 EXT_RC, INT_RC, MU = poseidon2_goldilocks_constants(gf.MODULUS, WIDTH, R_FULL, R_PARTIAL)
@@ -143,17 +148,52 @@ def state_into_commitment(state: torch.Tensor) -> torch.Tensor:
     return state[..., :COMMITMENT_WIDTH]
 
 
+def absorb_loop(inputs: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """Replacement-absorb the trailing axis of `inputs` into `state`, a
+    permutation a chunk of RATE, the last chunk zero-padded: the state after."""
+    n = inputs.shape[-1]
+    for i in range(0, n, RATE):
+        chunk = inputs[..., i : i + RATE]
+        if chunk.shape[-1] < RATE:
+            pad = gf.zeros(tuple(chunk.shape[:-1]) + (RATE - chunk.shape[-1],), inputs.device)
+            chunk = torch.cat([chunk, pad], dim=-1)
+        state = absorb_round(chunk, state)
+    return state
+
+
+def absorb_chained(inputs: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """`absorb_loop` on the card as one launch of the fused chain kernel,
+    each state a segment of its own: the same bits."""
+    from .poseidon2_cuda import chain_segmented_cuda
+
+    n = inputs.shape[-1]
+    rounds = -(-n // RATE)
+    states = state.reshape(-1, WIDTH)
+    rows = inputs.reshape(-1, n)
+    if rounds * RATE != n:
+        rows = torch.cat([rows, gf.zeros((rows.shape[0], rounds * RATE - n), inputs.device)],
+                         dim=-1)
+    encodings = rows.reshape(-1, RATE).contiguous()
+    boundaries = torch.cat([states, states[:1]]).contiguous()
+    execute = torch.ones((encodings.shape[0],), dtype=torch.bool, device=inputs.device)
+    landing = chain_segmented_cuda([(boundaries, encodings, execute)])[0]
+    return landing.reshape(state.shape)
+
+
 def hash_padded(inputs: torch.Tensor, length_specialize: bool = True) -> torch.Tensor:
     """Sponge-hash the trailing axis of field elements to 4 lanes: zero-pad
-    to a multiple of the rate, optionally length-specialize, replacement-absorb."""
+    to a multiple of the rate, optionally length-specialize, replacement-absorb.
+    On the card, a sponge of CHAIN_SPONGE_ROUNDS absorbs or more over fewer
+    than SMALL_BATCH states (a transcript absorb, the leaves of a short
+    trace) runs through `absorb_chained`."""
     n = inputs.shape[-1]
     batch = inputs.shape[:-1]
     state = empty_state(batch, inputs.device)
     if length_specialize:
         state = apply_length_specialization(state, n)
-    padded = n + (-n) % RATE
-    if padded != n:
-        inputs = torch.cat([inputs, gf.zeros(batch + (padded - n,), inputs.device)], dim=-1)
-    for i in range(0, padded, RATE):
-        state = absorb_round(inputs[..., i : i + RATE], state)
-    return state_into_commitment(state)
+    if inputs.device.type == "cuda" and -(-n // RATE) >= CHAIN_SPONGE_ROUNDS:
+        from .poseidon2_cuda import SMALL_BATCH
+
+        if 0 < state.numel() // WIDTH < SMALL_BATCH:
+            return state_into_commitment(absorb_chained(inputs, state))
+    return state_into_commitment(absorb_loop(inputs, state))

@@ -29,7 +29,10 @@ first/last-row constraints and public values.
 Everything large stays on the device of the trace; the transcript, the
 query positions and the openings pass through python ints and numpy.  The
 DEEP combination and the OOD evaluation run over bounded blocks of the
-domain (`_BLOCK_ELEMS`), which changes no value.  The soundness discussion
+domain (`_BLOCK_ELEMS`); the LDE goes a block of columns at a time and the
+quotient a block of rows at a time (`_WIDE_ELEMS`), so that an AIR of
+thousands of columns fits the card.  Each tree keeps its LDE once, as the
+row-major leaves.  None of this changes a value.  The soundness discussion
 is in the JAX module's docstring.
 """
 
@@ -48,6 +51,10 @@ from ..ops.gf import MODULUS
 # elements of one (rows, columns) block of the wide passes over the domain:
 # bounds their temporaries (a field product makes about a dozen of its size)
 _BLOCK_ELEMS = 1 << 22
+# elements of one (columns, domain) block of the LDE and of one (rows,
+# columns) block of the quotient: an AIR at most this wide over its domain
+# goes through in one piece
+_WIDE_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -143,9 +150,9 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
     return out
 
 
-def _block_rows(num_cols: int) -> int:
+def _block_rows(num_cols: int, elems: int = _BLOCK_ELEMS) -> int:
     """rows of one block of a (rows, num_cols) pass: a power of two."""
-    return 1 << max((_BLOCK_ELEMS // max(num_cols, 1)).bit_length() - 1, 0)
+    return 1 << max((elems // max(num_cols, 1)).bit_length() - 1, 0)
 
 
 def _domain_points(log_N: int, shift: int, device) -> torch.Tensor:
@@ -277,13 +284,34 @@ def _commit_rows(leaves: torch.Tensor, params: StarkParams) -> dict:
     return dict(cap=levels[-1], leaves=leaves, levels=levels)
 
 
+def _lde_rows(cols: torch.Tensor, params: StarkParams) -> torch.Tensor:
+    """The (N, m) row-major LDE of an (m, n) column group, a block of
+    columns at a time."""
+    m, n = cols.shape
+    N = n << params.log_blowup
+    step = max(_WIDE_ELEMS // N, 1)
+    out = torch.empty((N, m), dtype=cols.dtype, device=cols.device)
+    for i in range(0, m, step):
+        out[:, i:i + step] = ntt.lde(cols[i:i + step], params.log_blowup, params.coset_shift).T
+    return out
+
+
 def _commit_columns(cols: torch.Tensor, params: StarkParams) -> dict:
     """LDE + row-Merkle commitment of an (m, n) column group: a tree dict
-    {cap, leaves, levels, lde} that `prove` takes as its `phase1_tree`."""
-    lde_cols = ntt.lde(cols, params.log_blowup, params.coset_shift)
-    tree = _commit_rows(lde_cols.T.contiguous(), params)
-    tree["lde"] = lde_cols
-    return tree
+    {cap, leaves, levels} that `prove` takes as its `phase1_tree`; the
+    leaves are the LDE rows."""
+    return _commit_rows(_lde_rows(cols, params), params)
+
+
+def _domain_rows(trees, start: int, stop: int) -> torch.Tensor:
+    """LDE rows [start, stop) of every tree side by side: (rows, m), the
+    range wrapping around the domain."""
+    N = trees[0]["leaves"].shape[0]
+    if stop > N:
+        return torch.cat([_domain_rows(trees, start, N), _domain_rows(trees, 0, stop - N)])
+    if len(trees) == 1:
+        return trees[0]["leaves"][start:stop]
+    return torch.cat([t["leaves"][start:stop] for t in trees], dim=1)
 
 
 def _ch_ints(tr: Transcript, air: AirSpec) -> Tuple[int, ...]:
@@ -336,44 +364,47 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
 
     trees = []
     fixed_cap = None
-    all_cols = trace
+    groups = [trace]  # the column groups in the order of the rows
     if air.num_fixed_cols:
         if fixed_cols is None or tuple(fixed_cols.shape) != (air.num_fixed_cols, n):
             raise ValueError(f"the AIR takes fixed columns of shape {(air.num_fixed_cols, n)}")
         trees.append(_commit_columns(fixed_cols, params))
         fixed_cap = trees[0]["cap"]
-        all_cols = torch.cat([fixed_cols, trace])
+        groups.insert(0, fixed_cols)
     trees.append(phase1_tree if phase1_tree is not None else _commit_columns(trace, params))
     ch, tr = challenges_from_cap(trees[-1]["cap"], air, fixed_cap)
     _absorb_public(tr, public, air)
     if air.num_phase2_cols:
         if build_phase2 is None:
             raise ValueError("the AIR has phase-2 columns: build_phase2 is required")
-        t2 = build_phase2(all_cols, ch)
+        t2 = build_phase2(groups[0] if len(groups) == 1 else torch.cat(groups), ch)
         if tuple(t2.shape) != (air.num_phase2_cols, n):
             raise ValueError(f"build_phase2 gave {tuple(t2.shape)}, "
                              f"not {(air.num_phase2_cols, n)}")
         trees.append(_commit_columns(t2, params))
         tr.absorb(trees[-1]["cap"])
-        all_cols = torch.cat([all_cols, t2])
-    lde = trees[0]["lde"] if len(trees) == 1 else torch.cat([t["lde"] for t in trees])  # (m, N)
+        groups.append(t2)
 
     alpha = int(gf.to_u64(tr.challenge_ext().c0))
     xs = _domain_points(log_N, params.coset_shift, dev)
     zerofiers = _domain_zerofiers(params, xs)
-    cur = lde.T  # (N, m)
-    nxt = torch.roll(lde, -blowup, dims=-1).T
     ch_t = gf.from_u64(np.array(ch, dtype=np.uint64), dev)
-    quotient = _compose_rows(cur, nxt, public, ch_t, alpha, *zerofiers, air)
-    del nxt
+    # the next row at x is the LDE row `blowup` further on
+    m = air.total_cols
+    step = min(_block_rows(m, _WIDE_ELEMS), N)
+    quotient = torch.cat([
+        _compose_rows(_domain_rows(trees, i, i + step),
+                      _domain_rows(trees, i + blowup, i + step + blowup), public, ch_t,
+                      alpha, *(zf[i:i + step] for zf in zerofiers), air)
+        for i in range(0, N, step)])
     q_tree = _commit_rows(quotient.unsqueeze(-1), params)
     tr.absorb(q_tree["cap"])
 
     # OOD round: every column at z and w z, the quotient at z
     z = _ood_point(tr, params.log_n, params.log_blowup, params.coset_shift)
     wz = z * ntt.root_of_unity(params.log_n) % MODULUS
-    trace_z = _barycentric(all_cols, z, params.log_n, 1)
-    trace_wz = _barycentric(all_cols, wz, params.log_n, 1)
+    trace_z = torch.cat([_barycentric(g, z, params.log_n, 1) for g in groups])
+    trace_wz = torch.cat([_barycentric(g, wz, params.log_n, 1) for g in groups])
     q_z = _barycentric(quotient, z, log_N, params.coset_shift)
     ood = dict(trace_z=gf.to_u64(trace_z), trace_wz=gf.to_u64(trace_wz),
                q_z=int(gf.to_u64(q_z)))
@@ -381,15 +412,14 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
     lam = int(gf.to_u64(tr.challenge_ext().c0))
 
     # DEEP codeword over the whole LDE domain, a block of rows at a time
-    m = air.total_cols
     lpows, lam_m, lam_2m = _lambda_weights(lam, m, dev)
     a_z, a_wz = gf.dot_mod(trace_z, lpows), gf.dot_mod(trace_wz, lpows)
     inv_xz = gf.inv(gf.sub(xs, gf.constant(z, dev)))
     inv_xwz = gf.inv(gf.sub(xs, gf.constant(wz, dev)))
-    step = _block_rows(m)
+    step = min(_block_rows(m), N)
     deep = torch.cat([
-        _deep_combine(cur[i:i + step], quotient[i:i + step], lpows, lam_m, lam_2m, a_z, a_wz,
-                      ood["q_z"], inv_xz[i:i + step], inv_xwz[i:i + step])
+        _deep_combine(_domain_rows(trees, i, i + step), quotient[i:i + step], lpows, lam_m,
+                      lam_2m, a_z, a_wz, ood["q_z"], inv_xz[i:i + step], inv_xwz[i:i + step])
         for i in range(0, N, step)])
     fproof = fri.prove(deep, _fri_params(air, params))
 
