@@ -42,8 +42,8 @@ Phases, each printed on its own line:
      must fail `check_chain_segmented` in that row's segment and in no other;
   8. main_vm, small: a 3-instruction program at limit 8, card residuals equal
      CPU residuals key by key;
-  9. main_vm, full width: the benchmark loop through the native EraVM for 2^16
-     cycles and `vm.eval_constraints` on the card, all-true; host sim seconds,
+  9. main_vm, full width: the benchmark loop (16,383 rounds, returning at
+     cycle 65,534) through the native EraVM for 2^16 cycles and `vm.eval_constraints` on the card, all-true; host sim seconds,
      first and steady eval seconds, cycles/s, kernel launches per evaluation
      (above 0), peak device memory; one changed register limb must fail;
  10. sorter full, small: at 2^4 rows in two instances the fully proof-backed
@@ -134,7 +134,22 @@ Phases, each printed on its own line:
      peak device memory,
      each kernel's launches, every verdict true; negative probes (a rerouted
      element, a wrong opening, a flipped digest byte or word, a changed
-     message byte, a flipped scalar bit) each rejected.
+     message byte, a flipped scalar bit) each rejected;
+ 21. main_vm and node STARKs, small: the main_vm committed trace of the
+     bench loop at 2^11 rows (its fixed, phase-1 and phase-2 columns and the
+     constraint residuals, all zero) and the FRI-verifier node STARK over two
+     compact-form children (a whole proof, as nested ints) made on the card
+     equal those made on the CPU;
+ 22. main_vm and node STARKs, full width: `vm_air.prove_vm_core` /
+     `verify_vm_core` over phase 9's 2^16-cycle bench-loop witness (2^17 x
+     1,922), with the host trace builder timed alone; the type-1 writer
+     `block.vm_verdict` over phase 14's 2^16-cycle log-heavy run (its
+     `debug_residuals` printed first), `vm_code_reads_on_tape` against the
+     run's memory tape; `node_prove_in_field` / `node_verify_in_field` over
+     the 16 carried proofs of phase 11; each proof's rows x columns, prove
+     and verify seconds, peak memory and launches; four negative probes (a
+     forged boundary state, a forged code-read word, one child swapped for
+     another carried proof, one bit of a child's opened pair) each rejected.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -204,6 +219,14 @@ CIRCUIT_REF_BLOB = 8
 CIRCUIT_REF_QUERIES = 4
 CPU_REF_THREADS = 2  # the CPU references' torch threads, beside the card phases
 PRECOMPILE_PROOF_CALLS = 16
+# The bench loop's rounds (bench.py runs 0xFFFF): four cycles a round, so it
+# returns at cycle 65,534 and its last rows are the skip rows of a finished
+# run, which the main_vm AIR needs (ROADMAP Queue 3: a run cut at its cycle
+# limit cannot be proven, in either package)
+BENCH_LOOP_ITERATIONS = 16383
+VM_REF_CYCLES = 1024  # the small main_vm reference: a 2^11-row trace
+VM_REF_ITERATIONS = 254  # returns at cycle 1,018
+VM_REF_CH = (0x1234567, 0x89ABCDEF, 0x2468ACE, 0x13579BDF, 0xFEDCBA9, 0x7654321, 0xC0FFEE)
 BLAKE_PROOF_CALLS = 1 << 13
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
@@ -732,7 +755,8 @@ def ram_eval_full(dev, card, w, cfg, witness_s):
     return launches
 
 
-def _vm_programs():
+def _vm_programs(iterations=BENCH_LOOP_ITERATIONS):
+    """(the 3-instruction program, the bench loop of `iterations` rounds)."""
     from zkevm_circuits_tpu_torch.isa import opcodes as isa
 
     enc = isa.encode_instruction
@@ -744,7 +768,7 @@ def _vm_programs():
     set_flags = 1 << isa.SET_FLAGS_FLAG_IDX
     swap = 1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES
     loop = [
-        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xFFFF, src1=0, dst0=1),
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=iterations, src1=0, dst0=1),
         enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=1, src1=1, dst0=1, flags=set_flags | swap),
         enc(isa.MUL, src0=1, src1=1, dst0=2, dst1=3),
         enc(isa.BINOP, isa.BINOP_XOR, src0=2, src1=1, dst0=4),
@@ -805,7 +829,7 @@ def vm_eval_full(dev, card):
     if not bad:
         _fail("main_vm negative probe: a changed register limb was accepted")
     print(f"main_vm negative probe: a changed limb of r1 at row {n // 2} fails {bad}", flush=True)
-    return launches
+    return launches, w
 
 
 def _sorter_full_ints(full):
@@ -1379,7 +1403,7 @@ def log_path_full(dev, card):
     print(f"storage application negative probe: a changed path sibling fails {got}", flush=True)
     # what the circuit STARKs of types 4, 10 and 13 prove
     stark_inputs = dict(log_rows=block.block_rows(v)["logs"], hw=out["linear_hasher"][0],
-                        l1_hash=digest, aw=aw)
+                        l1_hash=digest, aw=aw, vm=(v, w, n))
     return launches, stark_inputs
 
 
@@ -2174,7 +2198,8 @@ def _cpu_references(conn):
     in a process of their own (minutes of plain permutations): each result
     is sent when it is made, while the card phases run."""
     torch.set_num_threads(CPU_REF_THREADS)
-    for name, make in (("sorter", _sorter_reference), ("circuits", _circuit_reference)):
+    for name, make in (("sorter", _sorter_reference), ("circuits", _circuit_reference),
+                       ("vm_node", _vm_node_reference)):
         try:
             conn.send((name, "ok", make(torch.device("cpu"))))
         except Exception:  # the boundary of the child: the parent reports it
@@ -2200,7 +2225,7 @@ def _cpu_reference(reference, name):
     got, status, value = reference["conn"].recv()
     if got != name or status != "ok":
         _fail(f"the CPU reference {got}: {status} {value if status != 'ok' else ''}")
-    if name == "circuits":
+    if name == "vm_node":
         reference["proc"].join()
     return value
 
@@ -2373,6 +2398,165 @@ def circuit_starks_full(dev, card, log_in, mem_in, blobs):
     return launches
 
 
+class _CompactForms:
+    """Two compact forms' encodings, as `make_carried_proofs` takes them."""
+
+    def __init__(self, enc, d):
+        self.enc, self.start_flag = enc, torch.zeros(enc.shape[0], dtype=torch.bool, device=d)
+
+    def encode(self):
+        from zkevm_circuits_tpu_torch.ops import gf
+
+        return gf.from_u64(self.enc, self.start_flag.device)
+
+
+def _vm_node_reference(d):
+    """The main_vm trace of the bench loop at VM_REF_CYCLES (2^11 rows) with
+    its phase-2 columns and constraint residuals, as u64 arrays (a whole
+    CPU proof takes minutes), and the node STARK over two compact-form
+    children, as nested ints, on device `d`."""
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops import gf
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+    from zkevm_circuits_tpu_torch.prover import vm_air
+    from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+
+    w = vm.NativeEraVM(vm.assemble_code_words(_vm_programs(VM_REF_ITERATIONS)[1]),
+                       VM_REF_CYCLES).run()
+    phase1, fixed, log_n = vm_air.vm_core_trace(w, VM_REF_CYCLES, d)
+    t2 = vm_air._build_phase2(torch.cat([fixed, phase1]), VM_REF_CH)
+    s_in, s_out = vm_air.boundary_state_vectors(phase1)
+    macc = vm_air.stream_rlc(vm_air.code_read_queries(w, VM_REF_CYCLES), VM_REF_CH[vm_air._MQ])
+    pub = vm_air._boundary_publics(s_in, s_out, VM_REF_CH[vm_air._RLC], macc, d)
+    cols = torch.cat([fixed, phase1, t2])
+    got = dict(vm=(log_n, gf.to_u64(cols),
+                   _air_residuals(vm_air.vm_core_air(), cols, pub, VM_REF_CH)))
+    enc = np.random.default_rng(9).integers(0, gf.MODULUS, size=(2, 18), dtype=np.uint64)
+    carried = rp.make_carried_proofs(_CompactForms(enc, d))
+    node = rp.node_prove_in_field(carried)
+    if node.vproof.q_cap.device.type != d.type or not rp.node_verify_in_field(node, carried):
+        _fail(f"the small node proof on {d}: not on its device, or rejected")
+    got["node"] = proof_to_ints(node.vproof)
+    return got
+
+
+def vm_node_starks_small(dev, reference):
+    """The main_vm trace, phase 2 and residuals and the small node proof,
+    the card's against the CPU's (from `start_cpu_references`)."""
+    t0 = time.perf_counter()
+    card = _vm_node_reference(dev)
+    card_s = time.perf_counter() - t0
+    cpu = _cpu_reference(reference, "vm_node")
+    waited = time.perf_counter() - t0 - card_s
+    (log_n, cols_a, res_a), (_, cols_b, res_b) = card["vm"], cpu["vm"]
+    if log_n != 11 or not np.array_equal(cols_a, cols_b) or not np.array_equal(res_a, res_b) \
+            or res_a.any():
+        _fail("main_vm small: the card's trace, phase 2 or residuals differ from the CPU's, or "
+              "a residual is not zero")
+    if card["node"] != cpu["node"]:
+        _fail("node small: the proof on the card differs from the CPU proof")
+    print(f"main_vm and node STARKs, small: the main_vm trace of the bench loop at "
+          f"{VM_REF_CYCLES} cycles (2^{log_n} x {cols_a.shape[0]}: fixed, phase 1, phase 2) and "
+          f"its residuals on the card == on the CPU, all zero; the node STARK over two "
+          f"compact-form children on the card == on the CPU as nested ints (the card's side "
+          f"{card_s:.1f} s; the CPU's in a process of its own, waited for {waited:.1f} s)",
+          flush=True)
+
+
+def vm_node_starks_full(dev, card, bench_w, log_vm, carried):
+    """Phase (f): the main_vm committed-trace STARK over the 2^16-cycle bench
+    loop, the type-1 writer over the log path's run, and the node STARK over
+    the sorter's 16 carried proofs, each made and verified on the card; then
+    four negative probes."""
+    import dataclasses
+
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+    from zkevm_circuits_tpu_torch.prover import verifier_air as va
+    from zkevm_circuits_tpu_torch.prover import vm_air
+    from zkevm_circuits_tpu_torch.prover.stark import _fri_params
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    t_phase = time.perf_counter()
+    KERNEL.reset_counts()
+    n = 1 << LOG2_VM_CYCLES
+    t0 = time.perf_counter()
+    phase1, _, log_n = vm_air.vm_core_trace(bench_w, n)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    del phase1
+    logs = dict(bench=[], log_path=[], node=[])
+    ok = block._proved(logs["bench"], "main_vm (1), bench loop", vm_air.vm_core_air(), None,
+                       lambda: vm_air.prove_vm_core(bench_w, n), vm_air.verify_vm_core)
+    v, w, log_n_cycles = log_vm
+    t0 = time.perf_counter()
+    residuals = vm_air.debug_residuals(w, log_n_cycles)
+    residuals_s = time.perf_counter() - t0
+    verdicts = {}
+    t0 = time.perf_counter()
+    log_ok, on_tape = block.vm_verdict(v, w, log_n_cycles, None, verdicts, log=logs["log_path"])
+    writer_s = time.perf_counter() - t0
+    fri_ps = tuple(_fri_params(pa.chain_air(pa.FULL), cp.params) for cp in carried)
+    node_air = va.verifier_air(va.build_schedule(fri_ps))
+    nodes = []
+
+    def node_prove():
+        nodes.append(rp.node_prove_in_field(carried))
+        return nodes[-1], nodes[-1].vparams
+
+    node_ok = block._proved(logs["node"], f"node ({len(carried)} carried proofs)", node_air,
+                            None, node_prove,
+                            lambda node, _: rp.node_verify_in_field(node, carried))
+    torch.cuda.synchronize()
+    launches = KERNEL.counts()
+    phase_s = time.perf_counter() - t_phase
+    print(f"main_vm and node STARKs: host trace of the bench loop ({n} cycles, 2^{log_n} rows) "
+          f"{trace_s:.3f} s; the log path's {log_n_cycles}-cycle run: debug_residuals "
+          f"{residuals or 'none failing'} ({residuals_s:.1f} s), type-1 writer {writer_s:.1f} s "
+          f"(the tape check included), verdicts {verdicts}, vm_code_reads_on_tape {on_tape}; "
+          f"the phase {phase_s:.1f} s; Poseidon2 launches over the phase {launches} [{card}]",
+          flush=True)
+    for key in ("bench", "log_path", "node"):
+        _report(logs[key][0], card)
+    if not (ok and log_ok and on_tape and node_ok) or verdicts != {1: True}:
+        _fail(f"main_vm / node STARKs: bench {ok}, log path {log_ok}, on tape {on_tape}, "
+              f"node {node_ok}")
+    for name in ("permutation", "permutation_small"):
+        if launches[name] <= 0:
+            _fail(f"the main_vm and node STARKs launched the {name} kernel no time")
+
+    # negative probes, each must verify false
+    probes = {}
+    rec = logs["bench"][0]
+    proof, s_in, s_out, reads, params = rec["proof"], *rec["rest"]
+    forged = s_out.copy()
+    forged[-1] ^= np.uint64(1)
+    probes["a forged final register limb (main_vm)"] = vm_air.verify_vm_core(
+        proof, s_in, forged, reads, params)
+    forged = reads.copy()
+    forged[reads.shape[0] // 2, 3] ^= np.uint64(1)
+    probes["a forged code-read word (main_vm)"] = vm_air.verify_vm_core(
+        proof, s_in, s_out, forged, params)
+    node = nodes[0]
+    swapped = list(carried)
+    swapped[PROBE_SLOT] = carried[PROBE_SLOT + 1]
+    probes["a child swapped for another carried proof (node)"] = rp.node_verify_in_field(
+        node, swapped)
+    fps = [cp.proof.fri_proof for cp in carried]
+    ops = [[dict(o) for o in q] for q in fps[PROBE_SLOT].openings]
+    pair = np.asarray(ops[0][0]["pair"], np.uint64).copy()
+    pair[0, 0] ^= np.uint64(1)
+    ops[0][0]["pair"] = pair
+    fps[PROBE_SLOT] = dataclasses.replace(fps[PROBE_SLOT], openings=ops)
+    probes["one bit of a child's opened pair (node)"] = va.verify_fri_verification(
+        node.vproof, fps, node.child_fri_params, node.vparams)
+    if any(probes.values()):
+        _fail(f"main_vm / node negative probes: {probes}")
+    print("main_vm and node negative probes, each rejected: " + "; ".join(probes), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
@@ -2407,11 +2591,11 @@ def main():
     del w
     torch.cuda.empty_cache()
     vm_eval_small(dev)
-    launches_vm_eval = vm_eval_full(dev, card)
+    launches_vm_eval, bench_w = vm_eval_full(dev, card)
     sorter_full_small(dev, reference)
     w, full, forms, carried, launches_sorter_full = sorter_full_path(dev, card)
     sorter_full_probes(w, full, forms, carried)
-    del w, full, forms, carried
+    del w, full, forms
     torch.cuda.empty_cache()
     launches_logup = logup_path(dev, card)
     log_path_small(dev)
@@ -2425,7 +2609,12 @@ def main():
     launches_eip_4844, blobs = eip_4844_full(dev, card)
     circuit_starks_small(dev, reference)
     launches_circuit_starks = circuit_starks_full(dev, card, log_inputs, mem_inputs, blobs)
+    log_vm = log_inputs["vm"]
     del log_inputs, mem_inputs, blobs
+    torch.cuda.empty_cache()
+    vm_node_starks_small(dev, reference)
+    launches_vm_node_starks = vm_node_starks_full(dev, card, bench_w, log_vm, carried)
+    del bench_w, log_vm, carried
     torch.cuda.empty_cache()
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
@@ -2440,7 +2629,8 @@ def main():
                        launches_log_sorter=launches_log_sorter[key],
                        launches_memory_thread=launches_memory_thread[key],
                        launches_eip_4844=launches_eip_4844[key],
-                       launches_circuit_starks=launches_circuit_starks[key])
+                       launches_circuit_starks=launches_circuit_starks[key],
+                       launches_vm_node_starks=launches_vm_node_starks[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

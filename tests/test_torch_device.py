@@ -152,3 +152,33 @@ def test_circuit_air_entry_points_raise_without_a_device_or_a_card(no_card):
             call()
     phase1, fixed, _, _, log_n = keccak_air.build_keccak_trace(b"abc", device="cpu")
     assert phase1.device.type == fixed.device.type == "cpu" and log_n == 5
+
+
+def test_vm_and_verifier_air_entry_points_raise_without_a_device_or_a_card(no_card):
+    """main_vm's trace builder, prover, debug residuals and type-1 writer,
+    and the verifier AIR's fixed columns and trace, take host data and follow
+    the same rule; the node proof follows its children, the verifiers the
+    proof"""
+    from zkevm_circuits_tpu_torch.prover import verifier_air as va
+    from zkevm_circuits_tpu_torch.prover import vm_air
+    from zkevm_circuits_tpu_torch.runtime import block
+
+    v, w = run_vm(vm.EraVM, PROGRAMS["arith_families"])
+    limit = PROGRAMS["arith_families"]["limit"]
+    p = fri.FriParams(log_domain=5, log_blowup=2, num_queries=2, cap_log2=1)
+    sched = va.build_schedule((p,))
+    calls = [
+        lambda: vm_air.fixed_tables(1 << 11),
+        lambda: vm_air.vm_core_trace(w, limit),
+        lambda: vm_air.prove_vm_core(w, limit),
+        lambda: vm_air.debug_residuals(w, limit),
+        lambda: block.vm_verdict(v, w, limit, None),
+        lambda: va.fixed_columns(sched),
+        lambda: va.build_verifier_trace([], (p,)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    phase1, fixed, log_n = vm_air.vm_core_trace(w, limit, device="cpu")
+    assert phase1.device.type == fixed.device.type == "cpu" and log_n == 11
+    assert va.fixed_columns(sched, "cpu").device.type == "cpu"

@@ -23,19 +23,12 @@ def jax_proof_to_ints(proof):
     def ints(a):
         return np.asarray(a, np.uint64).tolist()
 
-    f = proof.fri_proof
     return dict(
         caps=[u64(c).tolist() for c in proof.caps],
         q_cap=u64(proof.q_cap).tolist(),
         ood=dict(trace_z=ints(proof.ood["trace_z"]), trace_wz=ints(proof.ood["trace_wz"]),
                  q_z=int(proof.ood["q_z"])),
-        fri=dict(
-            caps=[u64(c).tolist() for c in f.caps],
-            final_poly=ints(f.final_poly),
-            query_indices=[int(i) for i in f.query_indices],
-            openings=[[dict(pair=ints(op["pair"]), path=ints(op["path"])) for op in q]
-                      for q in f.openings],
-        ),
+        fri=jax_fri_to_ints(proof.fri_proof),
         trace_openings=[
             {tag: dict(rows=[row(r) for r in op["rows"]], paths=[ints(p) for p in op["paths"]],
                        q_row=row(op["q_row"]), q_path=ints(op["q_path"]), index=int(op["index"]))
@@ -43,6 +36,18 @@ def jax_proof_to_ints(proof):
             for entry in proof.trace_openings
         ],
     )
+
+
+def jax_fri_to_ints(f) -> dict:
+    """A JAX FriProof as nested ints (`convert.fri_proof_from_ints` takes it)."""
+
+    def ints(a):
+        return np.asarray(a, np.uint64).tolist()
+
+    return dict(caps=[u64(c).tolist() for c in f.caps], final_poly=ints(f.final_poly),
+                query_indices=[int(i) for i in f.query_indices],
+                openings=[[dict(pair=ints(op["pair"]), path=ints(op["path"])) for op in q]
+                          for q in f.openings])
 
 
 def all_zero(res: dict) -> bool:

@@ -1,8 +1,9 @@
 """EraVM programs shared by the torch port's main_vm tests: the programs of
 tests/test_vm2.py, as data.
 
-Each entry of PROGRAMS is name -> dict(prog, limit, regs, kw, tamper):
-the limits are 16 or 32 only (two trace shapes keep the JAX side's eager
+Each entry of PROGRAMS (and of VM_AIR_PROGRAMS, the two witnesses of
+tests/test_vm_air.py) is name -> dict(prog, limit, regs, kw, tamper):
+the limits are 16, 24 or 32 only (two trace shapes keep the JAX side's eager
 compiles few); `regs` maps a register number to a value or (value, is_ptr); `kw` holds the
 VM's storage and code store; `tamper`, where present, is (column, index, kind)
 applied to the witness after the run ("xor1" flips the low bit, "add1" adds 1)
@@ -148,6 +149,38 @@ PROGRAMS = {
     ], limit=32, regs={1: (2 ** 28) << 192, 2: 0x20202},
         kw=_callee([enc(isa.LOG, isa.LOG_STORAGE_WRITE, src0=1, src1=1),
                     enc(isa.RET, isa.RET_OK)], 0x88, 0x20202)),
+}
+
+
+VM_AIR_PROGRAMS = {
+    "vm_air_base": _entry([
+        enc(isa.ADD, src0=1, src1=2, dst0=3, flags=SET_FLAGS),
+        enc(isa.SUB, src0=1, src1=2, dst0=4),
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=7, src1=3, dst0=5),
+        enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=1, src1=5, dst0=5, flags=SET_FLAGS | SWAP),
+        enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=6),
+        enc(isa.NOP),  # skipped over by the jump
+        enc(isa.SUB, src0=1, src1=1, dst0=6, flags=SET_FLAGS),
+        enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=9, condition=isa.COND_EQ),
+        enc(isa.NOP),
+        enc(isa.RET, isa.RET_OK),
+    ], limit=16, regs={1: BIG - 12345, 2: 0xFEDCBA9876543210}),
+    "vm_air_alu": _entry([
+        enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xBEEF, src1=0, dst0=1),
+        enc(isa.MUL, src0=1, src1=1, dst0=2, dst1=3, flags=SET_FLAGS),
+        enc(isa.MUL, src0=7, src1=7, dst0=4, dst1=5, flags=SET_FLAGS),
+        enc(isa.DIV, src0=7, src1=1, dst0=6, dst1=8, flags=SET_FLAGS),
+        enc(isa.DIV, src0=1, src1=9, dst0=10, dst1=11, flags=SET_FLAGS),
+        enc(isa.SHIFT, isa.SHIFT_SHL, src0=7, src1=1, dst0=12),
+        enc(isa.SHIFT, isa.SHIFT_SHR, src0=7, src1=1, dst0=13, flags=SET_FLAGS),
+        enc(isa.SHIFT, isa.SHIFT_ROL, src0=7, src1=1, dst0=14),
+        enc(isa.SHIFT, isa.SHIFT_ROR, src0=7, src1=9, dst0=12),
+        enc(isa.SHIFT, isa.SHIFT_ROR, src0=7, src1=1, dst0=12),
+        enc(isa.BINOP, isa.BINOP_AND, src0=7, src1=2, dst0=12, flags=SET_FLAGS),
+        enc(isa.BINOP, isa.BINOP_OR, src0=7, src1=2, dst0=12),
+        enc(isa.BINOP, isa.BINOP_XOR, src0=7, src1=7, dst0=12, flags=SET_FLAGS),
+        enc(isa.RET, isa.RET_OK),
+    ], limit=24, regs={1: 0xBEEF, 7: BIG - 0x1234567890}),
 }
 
 

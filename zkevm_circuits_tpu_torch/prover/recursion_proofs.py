@@ -13,9 +13,10 @@ enforce public input == queued commitment):
     EXTRACTS the public-input commitment from the proven publics, then runs
     the batched leaf checks of `models/recursion.py` on the verdicts.
 
-The node-level in-field verification (`NodeInFieldProof`) and the
-scheduler's node-slot proof are not ported yet: they need the verifier AIR
-and the scheduler.
+The node level proves in-field that it verified its children's FRI query
+phase (`node_prove_in_field`, prover/verifier_air.py).  The scheduler's
+node-slot proof (`VerifiedNodeProof`, `scheduler_node_proof`) is not ported
+yet: it needs the scheduler.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from ..models import recursion
 from ..ops import gf
 from . import pipeline
 from . import poseidon2_air as pa
-from .stark import StarkParams, StarkProof
+from . import verifier_air as va
+from .stark import StarkParams, StarkProof, _fri_params
 
 
 @dataclasses.dataclass
@@ -125,3 +127,38 @@ def leaf_layer_verify_starks(
         circuit_type, queue_types, queue_commitments, execute, batch,
         basic_vk_commitment=commitment_vk(queue_types.device),
     )
+
+
+@dataclasses.dataclass
+class NodeInFieldProof:
+    """A node-level STARK proving the verification of its children's FRI
+    query phase IN-FIELD (prover/verifier_air.py): "this node verified its
+    children" as a provable statement.  The public-coin replay and the DEEP
+    binding stay outer checks: `node_verify_in_field` runs them through the
+    ordinary child verifier and demands the in-field proof as well."""
+
+    vproof: StarkProof
+    vparams: StarkParams
+    child_fri_params: tuple
+
+
+def node_prove_in_field(children: Sequence[CarriedProof]) -> NodeInFieldProof:
+    """The node's verifier STARK over its children's FRI proofs, on their
+    device.  Raises AssertionError if a child proof is invalid: a node
+    cannot honestly claim to have verified a bad child."""
+    fri_ps = tuple(_fri_params(pa.chain_air(pa.FULL), cp.params) for cp in children)
+    vproof, _publics, vparams = va.prove_fri_verification(
+        [cp.proof.fri_proof for cp in children], fri_ps)
+    return NodeInFieldProof(vproof, vparams, fri_ps)
+
+
+def node_verify_in_field(node: NodeInFieldProof, children: Sequence[CarriedProof]) -> bool:
+    """Every child verifies under the ordinary verifier AND the in-field
+    STARK proves the query-phase verification of EXACTLY these children's
+    FRI proofs (the publics are rebuilt from the children, so a swapped or
+    tampered child fails)."""
+    for cp in children:
+        if verify_carried(cp) is None:
+            return False
+    return va.verify_fri_verification(node.vproof, [cp.proof.fri_proof for cp in children],
+                                      node.child_fri_params, node.vparams)

@@ -432,18 +432,20 @@ def memory_thread(v, w, code_store: dict, limits, device, times=None):
 
 
 # ---------------------------------------------------------------------------
-# the circuit STARKs' verdicts (runtime/block2.py:723-851)
+# the circuit STARKs' verdicts (runtime/block2.py:236-257, 723-851)
 # ---------------------------------------------------------------------------
 #
 # Each writer proves and verifies the circuit-specific STARKs of one type
 # on the data the paths above return, and returns its verdict.  With
 # `verdicts` (a dict) it merges the verdict in as the JAX block runtime
 # does: AND with an earlier verdict for types 3, 5, 6, 7, 10 and 13;
-# types 4 and 255 are assigned (block2.py:823 and :806, ROADMAP Queue 3).
+# types 1, 4 and 255 are assigned (block2.py:700, :823 and :806, ROADMAP
+# Queue 3).
 # With `log` (a list) every proof appends a record: name, rows, columns,
-# prove and verify seconds (each ended by a synchronize), the proof and its
-# params.  The provers pick their own params and the verifiers take them,
-# as in the JAX package (ROADMAP Queue 3).  A `limit` proves the first
+# prove and verify seconds (each ended by a synchronize), the proof, the
+# prover's other outputs (`rest`, its params last) and the params.  The
+# provers pick their own params and the verifiers take them, as in the JAX
+# package (ROADMAP Queue 3).  A `limit` proves the first
 # `limit` calls only (a cut for a script's time; None: every call, as the
 # JAX package).
 
@@ -472,7 +474,7 @@ def _proved(log, name, air, device, prove_fn, verify_fn) -> bool:
     if log is not None:
         params = rest[-1]
         rec = dict(name=name, rows=1 << params.log_n, cols=air.total_cols, prove_s=t1 - t0,
-                   verify_s=t2 - t1, ok=ok, proof=proof, params=params)
+                   verify_s=t2 - t1, ok=ok, proof=proof, rest=rest, params=params)
         if on_card:
             after = KERNEL.counts()
             rec.update(peak_bytes=torch.cuda.max_memory_allocated(device),
@@ -637,3 +639,25 @@ def ecrecover_verdict(ew, device, verdicts=None, log=None) -> bool:
                  lambda: eair.prove_ecrecover(ew, device=device),
                  lambda proof, cp, prm: eair.verify_ecrecover(proof, cp, prm))
     return _merge(verdicts, 7, ok)
+
+
+def vm_verdict(v, w: dict, limit: int, device, verdicts=None, log=None):
+    """Type 1: the committed-trace STARK of the VM's core relations
+    (`prover/vm_air.py`) over the run `v` with witness `w`, and the check
+    that every code read the proof's macc public binds is a row of the VM's
+    memory tape (`vm_code_reads_on_tape`, block2.py:236-257).  Returns
+    (verdict, vm_code_reads_on_tape); the verdict is the verifier's, and is
+    assigned to `verdicts[1]` (block2.py:700)."""
+    from ..base_structures.memory_query import encode_memory_queries_np
+    from ..prover import vm_air
+
+    ok = _proved(log, "main_vm (1)", vm_air.vm_core_air(), device,
+                 lambda: vm_air.prove_vm_core(w, limit, device=device), vm_air.verify_vm_core)
+    rows = v.memory_tape
+    tape = set()
+    if rows:
+        t = memory_tapes([rows])
+        tape = {r.tobytes() for r in encode_memory_queries_np(
+            t["timestamp"], t["memory_page"], t["index"], t["rw_flag"], t["is_ptr"], t["value"])}
+    reads = vm_air.code_read_queries(w, limit)  # the plaintext stream the proof binds
+    return _merge(verdicts, 1, ok, assign=True), all(r.tobytes() in tape for r in reads)

@@ -280,29 +280,13 @@ def proof_from_ints(d: dict, device=None) -> StarkProof:
     (None: the card), everything else numpy u64 and python ints, as `prove`
     makes them."""
     device = resolve_device(device)
-
-    def u64(a, shape_tail=None):
-        arr = np.asarray(a, np.uint64)
-        return arr.reshape((-1,) + shape_tail) if shape_tail else arr
-
-    def cap(c):
-        return gf.from_u64(u64(c, (4,)), device)
-
-    f = d["fri"]
-    fri_proof = fri.FriProof(
-        caps=[cap(c) for c in f["caps"]],
-        final_poly=u64(f["final_poly"]),
-        query_indices=[int(i) for i in f["query_indices"]],
-        openings=[[dict(pair=u64(op["pair"]), path=u64(op["path"], (4,))) for op in per_query]
-                  for per_query in f["openings"]],
-    )
     openings = [
         {
             tag: dict(
-                rows=[u64(r) for r in op["rows"]],
-                paths=[u64(p, (4,)) for p in op["paths"]],
-                q_row=u64(op["q_row"]),
-                q_path=u64(op["q_path"], (4,)),
+                rows=[_u64(r) for r in op["rows"]],
+                paths=[_u64(p, (4,)) for p in op["paths"]],
+                q_row=_u64(op["q_row"]),
+                q_path=_u64(op["q_path"], (4,)),
                 index=int(op["index"]),
             )
             for tag, op in entry.items()
@@ -310,10 +294,33 @@ def proof_from_ints(d: dict, device=None) -> StarkProof:
         for entry in d["trace_openings"]
     ]
     return StarkProof(
-        caps=[cap(c) for c in d["caps"]],
-        q_cap=cap(d["q_cap"]),
-        ood=dict(trace_z=u64(d["ood"]["trace_z"]), trace_wz=u64(d["ood"]["trace_wz"]),
+        caps=[_cap(c, device) for c in d["caps"]],
+        q_cap=_cap(d["q_cap"], device),
+        ood=dict(trace_z=_u64(d["ood"]["trace_z"]), trace_wz=_u64(d["ood"]["trace_wz"]),
                  q_z=int(d["ood"]["q_z"])),
-        fri_proof=fri_proof,
+        fri_proof=fri_proof_from_ints(d["fri"], device),
         trace_openings=openings,
+    )
+
+
+def _u64(a, shape_tail=None) -> np.ndarray:
+    arr = np.asarray(a, np.uint64)
+    return arr.reshape((-1,) + shape_tail) if shape_tail else arr
+
+
+def _cap(c, device) -> torch.Tensor:
+    return gf.from_u64(_u64(c, (4,)), device)
+
+
+def fri_proof_from_ints(f: dict, device=None) -> fri.FriProof:
+    """A FriProof from nested ints (the "fri" part of `proof_to_ints`, or
+    a JAX FriProof pulled to numpy): caps as field tensors on `device`
+    (None: the card), pairs and paths numpy u64."""
+    device = resolve_device(device)
+    return fri.FriProof(
+        caps=[_cap(c, device) for c in f["caps"]],
+        final_poly=_u64(f["final_poly"]),
+        query_indices=[int(i) for i in f["query_indices"]],
+        openings=[[dict(pair=_u64(op["pair"]), path=_u64(op["path"], (4,))) for op in per_query]
+                  for per_query in f["openings"]],
     )
