@@ -52,8 +52,8 @@ Phases, each printed on its own line:
      range table, made on the card, equal those made on the CPU as nested ints;
  11. sorter full, full width: the ram_permutation witness from
      build_tapes_np(2^16) with per-row chains in 16 instances of 2^12 rows;
-     prove_sorter_full (first and steady prove+verify seconds, peak device
-     memory), the 16 compact-commitment STARKs (make_carried_proofs, the
+     prove_sorter_full once (prove+verify seconds, peak device memory; cut
+     3 below), the 16 compact-commitment STARKs (make_carried_proofs, the
      sorter argument riding on the first) and the recursion leaf check of
      circuit type 8 against the queued commitments, all true; each kernel's
      launches over the path (the thread-per-state and the small-batch kernel
@@ -82,7 +82,7 @@ Phases, each printed on its own line:
      one instance, storage application one of the next power of two of its
      stage rows), all residuals and handoffs true, the digest equal to the
      host keccak, the final root the replayed one; witness (with the tree's
-     share), evaluation and compact-form seconds (first and steady) per
+     share), evaluation and compact-form seconds (once: cut 1) per
      circuit, the counts the program reaches, the Poseidon2 launches of the
      path; six negative probes (a storage written_value limb, a demux
      out-flag, two swapped sorted events, a keccak state lane, a VM
@@ -109,7 +109,7 @@ Phases, each printed on its own line:
      residuals and handoffs (`memory_thread_closes`: ram's unsorted tail is
      the ecrecover circuit's last memory state) true, every keccak, sha256 and
      ecrecover output the host's; witness, evaluation and compact-form seconds
-     per circuit, the counts against their targets, the Poseidon2 launches,
+     (once: cut 1) per circuit, the counts against their targets, the Poseidon2 launches,
      peak device memory; five negative probes (a sha256 round's state word, a
      keccak digest byte, a keccak instance's FSM boundary, an unpacked code
      word, an ecrecover ladder limb) failing where the JAX package fails
@@ -127,7 +127,7 @@ Phases, each printed on its own line:
      over the log path's rows (type 4), a keccak proof of the L1 stream (13),
      per blob the Horner proof and three keccak chains (255), the ecrecover
      ladders of every call (7), a sha256 chain per unique unpacked code (3),
-     the first 16 calls of the sha256 and keccak precompiles (6, 5), the
+     the first 8 calls of the sha256 and keccak precompiles (6, 5; cut 2), the
      first 2^13 blake2s compressions of storage application (10); each proof
      made and verified on the card (demux and L1 twice, first and steady;
      ecrecover and blake2s once): rows x columns, prove and verify seconds,
@@ -149,7 +149,34 @@ Phases, each printed on its own line:
      the 16 carried proofs of phase 11; each proof's rows x columns, prove
      and verify seconds, peak memory and launches; four negative probes (a
      forged boundary state, a forged code-read word, one child swapped for
-     another carried proof, one bit of a child's opened pair) each rejected.
+     another carried proof, one bit of a child's opened pair) each rejected;
+ 23. the block, small: `block_program` (a bootloader loop that calls
+     `log_program`'s callees and `memory_program`'s workers in turn) for
+     1,024 cycles through `runtime.block2.execute_block2` (the Python EraVM),
+     limits of 16, two blobs of 16 elements, the scheduler on, no proofs; on
+     the card and on the CPU (a process of its own): every compact form per
+     type, residual and handoff, the scheduler's checks, the content hash and
+     the public input equal; ok, types 1..13, every precompile output the
+     host's; `runtime.chain.execute_chain` over two such blocks that write
+     two tags to one storage cell: the hashes threaded, the storage carried
+     over, the aggregate equal on the card and on the CPU;
+ 24. the block, full width: `block_program` for 2^16 cycles through the
+     native EraVM, then `execute_block2_from_run` at phases 14 and 17's
+     instance sizes with the sorter STARKs (full chains), every compact
+     commitment proven and leaf-checked, the in-field node of type 8 and the
+     scheduler: the host sim, every stage's, proof's and the scheduler's
+     seconds, each type's instances, peak memory and the Poseidon2 launches
+     (each kernel above 0); every verdict, commitment verdict and scheduler
+     check true, ok; four negative probes on the scheduler (one carried
+     proof swapped between two instances, a derived-input lane, another
+     previous block, a wrong node VK) each failing where it must.
+
+Cuts of depth made so that phases 23-24 fit the script's time (on an H100
+at 700 W the script took 596-698 s without them, 713 s with them and no
+cut), in this order: (1) phases 14 and 17 run each stage once, not twice (first
+and steady); (2) phase 20 proves the first 8 calls of types 5 and 6, not
+16; (3) phase 11 proves the sorter argument once, without its steady
+rerun.  Every path is still driven.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -218,7 +245,7 @@ PROBE_SLOT = 5
 CIRCUIT_REF_BLOB = 8
 CIRCUIT_REF_QUERIES = 4
 CPU_REF_THREADS = 2  # the CPU references' torch threads, beside the card phases
-PRECOMPILE_PROOF_CALLS = 16
+PRECOMPILE_PROOF_CALLS = 8
 # The bench loop's rounds (bench.py runs 0xFFFF): four cycles a round, so it
 # returns at cycle 65,534 and its last rows are the skip rows of a finished
 # run, which the main_vm AIR needs (ROADMAP Queue 3: a run cut at its cycle
@@ -228,6 +255,14 @@ VM_REF_CYCLES = 1024  # the small main_vm reference: a 2^11-row trace
 VM_REF_ITERATIONS = 254  # returns at cycle 1,018
 VM_REF_CH = (0x1234567, 0x89ABCDEF, 0x2468ACE, 0x13579BDF, 0xFEDCBA9, 0x7654321, 0xC0FFEE)
 BLAKE_PROOF_CALLS = 1 << 13
+# the whole block: `block_program` rounds (about 72 cycles each), the small
+# one returning at cycle 998 of 1,024, the full one at 64,571 of 2^16
+BLOCK_SMALL_ITERATIONS = 14
+BLOCK_SMALL_CYCLES = 1024
+BLOCK_SMALL_LIMIT = 16
+BLOCK_ITERATIONS = 900
+BLOCK_TAG_KEY = 0x7FFF  # the bootloader's storage cell a chain's blocks overwrite
+CHAIN_TAGS = (111, 222)
 
 # The kernel's bound.  Work of one permutation, counted from csrc/poseidon2.cu:
 # Goldilocks products: 8 full rounds x 12 lanes x 4 (x^7) + 22 partial rounds
@@ -247,6 +282,11 @@ BYTES_PER_STATE = 2 * 12 * 8
 KERNEL_SOURCE = "zkevm_circuits_tpu_torch/csrc/poseidon2.cu"
 COOP_SOURCE = "zkevm_circuits_tpu_torch/csrc/poseidon2_coop.cuh"
 REPLACES = "zkevm_circuits_tpu/ops/poseidon2_pallas.py:89"
+
+
+def _seconds(runs):
+    """a stage's seconds, "first / steady" when it ran twice"""
+    return " / ".join(f"{x:.4f}" for x in runs)
 
 
 def _fail(msg):
@@ -964,18 +1004,10 @@ def sorter_full_path(dev, card):
         if launches[name] <= 0:
             _fail(f"the sorter full path launched the {name} kernel no time")
 
-    KERNEL.reset_counts()
-    t0 = time.perf_counter()
-    ok, _ = pipeline.prove_sorter_full(w)
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
-    if not ok or KERNEL.counts() != prove_launches:
-        _fail(f"steady sorter full proof: verdict {ok}, launches {KERNEL.counts()} "
-              f"against {prove_launches} in the first")
     print(f"sorter full: witness 2^{LOG2_SORTER_ROWS} rows, {k} instances of "
           f"2^{LOG2_SORTER_LIMIT}, per-row chains {witness_s:.3f} s; prove+verify (grand product "
-          f"+ 2 chain STARKs of {n} rows, 262 + 1 columns, LDE 2^{LOG2_SORTER_ROWS + 2}) first "
-          f"{first_s:.3f} s, steady {steady_s:.3f} s ({n / steady_s:.1f} rows/s); peak device "
+          f"+ 2 chain STARKs of {n} rows, 262 + 1 columns, LDE 2^{LOG2_SORTER_ROWS + 2}) "
+          f"{first_s:.3f} s ({n / first_s:.1f} rows/s); peak device "
           f"memory {peak / 2**20:.1f} MiB; kernel launches of a prove+verify {prove_launches}; "
           f"{k} compact-commitment STARKs {carried_s:.3f} s; leaf check of circuit type "
           f"{RAM_CIRCUIT_TYPE} (every proof verified, the sorter argument again on slot 0) "
@@ -1383,15 +1415,15 @@ def log_path_full(dev, card):
             if name not in ("main_vm", "storage_application")}
     print(f"log path: host sim 2^{LOG2_LOG_PATH_CYCLES} cycles {sim_s:.3f} s; counts {counts} "
           f"(below the targets: {short or 'none'}); rows a circuit {rows}; instances of "
-          f"2^{LOG2_LOG_LIMIT}; seconds first / steady "
-          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          f"2^{LOG2_LOG_LIMIT}; seconds "
+          + "; ".join(f"{k} {_seconds(x)}" for k, x in times.items())
           + f"; the whole path {path_s:.3f} s; all residuals true; handoffs {sorted(handoffs)} "
           f"true; L1 digest {digest.hex()[:16]}.. == host keccak over {counts['l1_survivors']} "
           f"survivors; Poseidon2 launches over the path {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB [{card}]", flush=True)
     print(f"storage application: {len(survivors)} queries, {int(aw.row_execute.sum())} stage rows "
           f"of {aw.row_execute.shape[0]}; witness seconds {times['storage_application witness']} "
-          f"of which the tree {times['storage_application tree']}; eval first / steady "
+          f"of which the tree {times['storage_application tree']}; eval "
           f"{times['storage_application eval']}; compact form "
           f"{times['storage_application compact']} (its commitment "
           f"{aform.commitment()[0].tolist()}); final root == the replayed root (a plain "
@@ -1685,6 +1717,66 @@ def memory_program(iterations, seed=0, log2_code_words=LOG2_CALLEE_CODE_WORDS):
             heap[MEM_SIG_WORD + 4 * k + j] = value
     return (boot_words, dict(storage=storage, code_store=code_store, bootloader_heap=heap),
             dict(heap=heap, sigs=sigs, sha_messages=sha_messages))
+
+
+def block_program(iterations, seed=0, log2_code_words=LOG2_CALLEE_CODE_WORDS, tag=1):
+    """The whole block's program: a bootloader loop of `iterations` rounds,
+    round i (from 1) a far call into `log_program`'s callee i & 3 (storage
+    writes and reads, four events, an L1 message every 2nd round, a revert
+    every 8th call), then one into `memory_program`'s worker i & 7 (one call
+    of the keccak and of the sha256 precompile, worker 0 one of ecrecover as
+    well).  The loop counter lives in bootloader heap word 0, so a block that
+    starts from another block's final storage runs the same rounds and
+    writes the same cells again; after the loop the bootloader writes `tag`
+    to its storage cell BLOCK_TAG_KEY and reads it back.  About 72 cycles a
+    round: 2^16 cycles carry about half of `log_program`'s and half of
+    `memory_program`'s traffic.  Returns (code words, EraVM keyword
+    arguments, host) as `memory_program`."""
+    from zkevm_circuits_tpu_torch.isa import opcodes as isa
+    from zkevm_circuits_tpu_torch.models import code_unpacker_sha256 as cu
+    from zkevm_circuits_tpu_torch.models import vm
+
+    _, log_kw = log_program(iterations)
+    _, mem_kw, host = memory_program(iterations, seed, log2_code_words)
+    # the log callees under their real code hashes: the unpacker checks them
+    storage, code_store = dict(mem_kw["storage"]), dict(mem_kw["code_store"])
+    for key, code_hash in log_kw["storage"].items():
+        code = log_kw["code_store"][code_hash]
+        storage[key] = cu.make_request(code, 0, 0)["code_hash"]
+        code_store[storage[key]] = code
+    enc = isa.encode_instruction
+    set_flags = 1 << isa.SET_FLAGS_FLAG_IDX
+    swap = 1 << isa.SWAP_OPERANDS_FLAG_IDX_FOR_ARITH_OPCODES
+    n_words = (1 << log2_code_words) + 1
+    abi_slot = n_words - 2
+    abi = (1 << 248) | (1 << (192 + 20))  # a system call with 2^20 ergs
+
+    def heap_read(dst):
+        return enc(isa.UMA, isa.UMA_HEAP_READ, src0=0, dst0=dst)
+
+    def call(base, mask, cont):
+        return [enc(isa.BINOP, isa.BINOP_AND, src_mode=isa.SRC_IMM, imm0=mask, src1=3, dst0=4),
+                enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=base, src1=4, dst0=4),
+                enc(isa.ADD, src_mode=isa.SRC_CODE, imm0=abi_slot, src1=0, dst0=1),
+                enc(isa.FAR_CALL, isa.FAR_CALL_NORMAL, src0=1, src1=4, imm0=cont)]
+
+    boot = [heap_read(3), enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=1, src1=3, dst0=3),
+            enc(isa.UMA, isa.UMA_HEAP_WRITE, src0=0, src1=3)]
+    boot += call(LOG_CALLEE_BASE, 3, len(boot) + 4)
+    boot += [heap_read(3)]
+    boot += call(MEM_CALLEE_BASE, 7, len(boot) + 4)
+    boot += [heap_read(3),
+             enc(isa.SUB, src_mode=isa.SRC_IMM, imm0=iterations, src1=3, dst0=5,
+                 flags=set_flags | swap),
+             enc(isa.JUMP, src_mode=isa.SRC_IMM, imm0=0, condition=isa.COND_NE),
+             enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=BLOCK_TAG_KEY, src1=0, dst0=2),
+             enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=tag, src1=0, dst0=3),
+             enc(isa.LOG, isa.LOG_STORAGE_WRITE, src0=2, src1=3),
+             enc(isa.LOG, isa.LOG_STORAGE_READ, src0=2, dst0=4),
+             enc(isa.RET, isa.RET_OK)]
+    boot_words = _pad_code(vm.assemble_code_words(boot), n_words, [(abi_slot, abi)])
+    return boot_words, dict(storage=storage, code_store=code_store,
+                            bootloader_heap=mem_kw["bootloader_heap"]), host
 
 
 def precompile_outputs(out, host):
@@ -2038,8 +2130,8 @@ def memory_thread_full(dev, card):
                                ("unpacker_rounds", 1 << 11), ("ecrecover_calls", 1 << 6))
              if counts.get(k, 0) < need]
     print(f"memory thread: host sim 2^{LOG2_MEM_CYCLES} cycles {sim_s:.3f} s; counts {counts} "
-          f"(below the targets: {short or 'none'}); instances {MEM_LIMITS}; seconds first / steady "
-          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          f"(below the targets: {short or 'none'}); instances {MEM_LIMITS}; seconds "
+          + "; ".join(f"{k} {_seconds(x)}" for k, x in times.items())
           + f"; the whole thread {path_s:.3f} s; all residuals true; handoffs {sorted(handoffs)} "
           f"true; {checked} precompile outputs == the host's keccak256 / sha256 / recover; "
           f"Poseidon2 launches over the thread {launches}; peak device memory "
@@ -2067,10 +2159,11 @@ def eip_4844_full(dev, card):
     KERNEL.reset_counts()
     for b in range(2):
         chunks, vh = blob_inputs(cfg.elements, 100 + b)
-        bw = block.stage(times, f"blob {b} witness", lambda: e44.generate_witness(chunks, vh, cfg))
+        bw = block.stage(times, f"blob {b} witness", lambda: e44.generate_witness(chunks, vh, cfg),
+                         2)
         blobs.append((bw, chunks, vh, cfg.elements))
-        res = block.stage(times, f"blob {b} eval", lambda: e44.eval_constraints(bw, cfg))
-        block.stage(times, f"blob {b} compact", lambda: e44.instance_compact_form(bw, cfg))
+        res = block.stage(times, f"blob {b} eval", lambda: e44.eval_constraints(bw, cfg), 2)
+        block.stage(times, f"blob {b} compact", lambda: e44.instance_compact_form(bw, cfg), 2)
         if _bad(res) or bw.chunks.device.type != dev.type:
             _fail(f"eip_4844 blob {b}: residuals {_bad(res)} are false, or not on the card")
         got = (bytes(bw.linear_hash.cpu().tolist()), bytes(bw.output_hash.cpu().tolist()))
@@ -2083,7 +2176,7 @@ def eip_4844_full(dev, card):
     torch.cuda.synchronize()
     launches = KERNEL.counts()
     print(f"eip_4844: two blobs of {cfg.elements} elements; seconds first / steady "
-          + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items())
+          + "; ".join(f"{k} {_seconds(x)}" for k, x in times.items())
           + f"; all residuals true; linear and output hashes == the host's (output {hashes}); "
           f"a changed coefficient fails {probe}; Poseidon2 launches {launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]", flush=True)
@@ -2193,31 +2286,30 @@ def _circuit_reference(d):
     return got
 
 
-def _cpu_references(conn):
-    """The CPU sides of the sorter-full and circuit-STARK small references,
-    in a process of their own (minutes of plain permutations): each result
-    is sent when it is made, while the card phases run."""
+def _cpu_references(conn, names):
+    """The CPU sides of the small references `names`, in a process of their
+    own (minutes of plain permutations): each result is sent when it is made,
+    while the card phases run."""
     torch.set_num_threads(CPU_REF_THREADS)
-    for name, make in (("sorter", _sorter_reference), ("circuits", _circuit_reference),
-                       ("vm_node", _vm_node_reference)):
+    for name in names:
         try:
-            conn.send((name, "ok", make(torch.device("cpu"))))
+            conn.send((name, "ok", CPU_REFERENCES[name](torch.device("cpu"))))
         except Exception:  # the boundary of the child: the parent reports it
             conn.send((name, "error", traceback.format_exc()))
     conn.close()
 
 
-def start_cpu_references():
-    """Start the small references' CPU side; `sorter_full_small` and
-    `circuit_starks_small` read its results."""
+def start_cpu_references(names):
+    """Start the CPU side of the small references `names`, in this order, in
+    a process of its own; the small phases read its results."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     parent, child = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_cpu_references, args=(child,), daemon=True)
+    proc = ctx.Process(target=_cpu_references, args=(child, names), daemon=True)
     proc.start()
     child.close()
-    return dict(proc=proc, conn=parent, started=time.perf_counter())
+    return dict(proc=proc, conn=parent, names=names, started=time.perf_counter())
 
 
 def _cpu_reference(reference, name):
@@ -2225,7 +2317,7 @@ def _cpu_reference(reference, name):
     got, status, value = reference["conn"].recv()
     if got != name or status != "ok":
         _fail(f"the CPU reference {got}: {status} {value if status != 'ok' else ''}")
-    if name == "vm_node":
+    if name == reference["names"][-1]:
         reference["proc"].join()
     return value
 
@@ -2557,6 +2649,247 @@ def vm_node_starks_full(dev, card, bench_w, log_vm, carried):
     return launches
 
 
+def _block_small_config():
+    from zkevm_circuits_tpu_torch.runtime import block2
+
+    lim = BLOCK_SMALL_LIMIT
+    return block2.Block2Config(
+        vm_limit=BLOCK_SMALL_CYCLES, vm_instance_limit=lim, sorter_limit=lim, hasher_limit=64,
+        unpacker_rounds=lim, keccak_blocks=lim, sha_rounds=lim, ec_calls=1, storage_rows=256,
+        ram_limit=lim)
+
+
+def _block_values(res):
+    """What phase 23 holds equal between the card and the CPU: every compact
+    form per type, residual and handoff, the scheduler's checks in order, the
+    content hash and the public input, as numpy and python values."""
+    from zkevm_circuits_tpu_torch.ops import gf
+
+    def arr(t):
+        return gf.to_u64(t) if t.dtype == torch.int64 else t.cpu().numpy()
+
+    sched = res.scheduler_result
+    return dict(
+        forms={t: [arr(getattr(cf, f.name)) for f in dataclasses.fields(cf)]
+               for t, cf in sorted(res.compact_forms.items())},
+        residuals={name: {k: x.cpu().numpy() for k, x in r.items()}
+                   for name, r in res.residuals.items()},
+        handoffs=dict(res.handoffs), checks=list(sched.checks.items()),
+        content_hash=sched.block_content_hash, public_input=gf.to_u64(sched.public_input),
+        ok=res.ok)
+
+
+def _same_values(a, b):
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            _same_values(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_values(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _block_reference(d):
+    """Phase 23 on `d`: the block program's 1,024 cycles through
+    `execute_block2` (the Python EraVM) with two blobs, no proofs; then
+    `execute_chain` over two such blocks that write CHAIN_TAGS to the same
+    cell.  Returns the values held equal and, for the card's side, the
+    results."""
+    from zkevm_circuits_tpu_torch.runtime import block2, chain
+
+    cfg = _block_small_config()
+    words, kw, host = block_program(BLOCK_SMALL_ITERATIONS, 0, MEM_SMALL_LOG2_CODE_WORDS)
+    blobs = [blob_inputs(MEM_SMALL_BLOB, 100 + b) for b in range(2)]
+    res = block2.execute_block2(words, cfg, device=d, blobs=blobs, **kw)
+    specs = [dict(code=block_program(BLOCK_SMALL_ITERATIONS, 0, MEM_SMALL_LOG2_CODE_WORDS, tag)[0],
+                  code_store=kw["code_store"], bootloader_heap=kw["bootloader_heap"])
+             for tag in CHAIN_TAGS]
+    cr = chain.execute_chain(specs, cfg, initial_storage=kw["storage"], device=d)
+    tag_writes = [[q["read_value"] for q in b.vm.log_tape
+                   if q["rw_flag"] and q["key"] == BLOCK_TAG_KEY] for b in cr.blocks]
+    values = dict(block=_block_values(res), chain=[_block_values(b) for b in cr.blocks],
+                  content_hashes=cr.content_hashes, aggregate=cr.aggregated_input,
+                  previous=[b.scheduler_inputs["previous_block_content_hash"] for b in cr.blocks],
+                  tag_writes=tag_writes, chain_ok=cr.ok)
+    return values, (res, cr, host)
+
+
+def block_small(dev, reference):
+    """Phase 23: the whole block at 1,024 cycles and a chain of two blocks,
+    the card's against the CPU's (from `start_cpu_references`)."""
+    t0 = time.perf_counter()
+    card, (res, cr, host) = _block_reference(None)
+    card_s = time.perf_counter() - t0
+    cpu = _cpu_reference(reference, "block")
+    waited = time.perf_counter() - t0 - card_s
+    if not _same_values(card, cpu):
+        diff = [k for k in card if not _same_values(card[k], cpu[k])]
+        _fail(f"block small: the card's {diff} differ from the CPU's")
+    if not res.ok or sorted(res.compact_forms) != list(range(1, 14)):
+        _fail(f"block small: failing {res.failing()}, types {sorted(res.compact_forms)}")
+    if res.compact_forms[8].start_flag.device.type != dev.type:
+        _fail("block small: the compact forms are not on the card")
+    outputs = precompile_outputs({k: (x,) for k, x in res.witnesses.items()}, host)
+    if not card["chain_ok"] or card["previous"] != [b"\x00" * 32, card["content_hashes"][0]] \
+            or card["tag_writes"] != [[0], [CHAIN_TAGS[0]]]:
+        _fail(f"chain: ok {card['chain_ok']}, the hashes not threaded or the storage not "
+              f"carried over (the tag cell's prior values {card['tag_writes']})")
+    counts = {t: int(cf.start_flag.shape[0]) for t, cf in sorted(res.compact_forms.items())}
+    print(f"block small: block_program({BLOCK_SMALL_ITERATIONS}) for {BLOCK_SMALL_CYCLES} cycles "
+          f"through execute_block2 (the Python EraVM), limits of {BLOCK_SMALL_LIMIT}, two blobs of "
+          f"{MEM_SMALL_BLOB}, the scheduler on, no proofs: instances a type {counts}; every compact "
+          f"form, residual ({len(card['block']['residuals'])} circuits) and handoff "
+          f"({len(res.handoffs)}), the {len(res.scheduler_result.checks)} scheduler checks, the "
+          f"content hash and the public input on the card == on the CPU; ok, all true; "
+          f"{outputs} precompile outputs the host's; execute_chain over two blocks: ok, the "
+          f"second's previous hash the first's content hash, the tag cell's prior values "
+          f"{card['tag_writes']} (the storage carried over), the aggregate "
+          f"{card['aggregate'].hex()[:16]}.. on the card == on the CPU (the card's side "
+          f"{card_s:.1f} s; the CPU's in a process of its own, waited for {waited:.1f} s)",
+          flush=True)
+
+
+def block_config():
+    """Phase 24's configuration: phases 14 and 17's instance sizes, the
+    sorter STARKs with their full chains, every compact commitment, the
+    in-field node of type 8."""
+    from zkevm_circuits_tpu_torch.runtime import block2
+
+    return block2.Block2Config(
+        vm_limit=1 << LOG2_VM_CYCLES, vm_instance_limit=1 << LOG2_LOG_LIMIT,
+        sorter_limit=1 << LOG2_LOG_LIMIT, hasher_limit=1 << 10, unpacker_rounds=MEM_LIMITS[0],
+        keccak_blocks=MEM_LIMITS[1], sha_rounds=MEM_LIMITS[0], ec_calls=1,
+        storage_rows=1 << 12, ram_limit=MEM_LIMITS[3],
+        prove_sorter_starks=True, prove_full_sorter_chains=True, prove_commitments=True,
+        node_in_field_types=(RAM_CIRCUIT_TYPE,))
+
+
+def block_probes(res):
+    """Phase 24's negative probes on the scheduler's inputs; returns what
+    each failed."""
+    from zkevm_circuits_tpu_torch.models import scheduler
+    from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
+    from zkevm_circuits_tpu_torch.runtime import block2
+
+    inputs, honest = res.scheduler_inputs, res.scheduler_result
+
+    def failing(**change):
+        got = scheduler.run_scheduler(**dict(inputs, **change))
+        return sorted(k for k, ok in got.checks.items() if not ok), got
+
+    # one carried commitment proof swapped between two instances of a type
+    t = min((k for k, c in res.carried.items() if len(c) > 1), key=lambda k: len(res.carried[k]))
+    name = scheduler.CIRCUIT_TYPES[t]
+    swapped = list(res.carried[t])
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    proof, leaf_ok = rp.node_slot_proof(t, res.compact_forms[t], swapped,
+                                        inputs["leaf_params_by_type"][t], block2.NODE_VK)
+    got1, _ = failing(node_proofs_by_type={**inputs["node_proofs_by_type"], t: proof})
+    if leaf_ok or got1 != [f"{name}_node_proof"]:
+        _fail(f"probe swapped carried proofs of type {t}: leaf {leaf_ok}, failing {got1}")
+    # one lane of one type's derived input
+    d = dict(inputs["derived_observable_inputs"])
+    d[RAM_CIRCUIT_TYPE] = d[RAM_CIRCUIT_TYPE].clone()
+    d[RAM_CIRCUIT_TYPE][3] ^= 1
+    got2, _ = failing(derived_observable_inputs=d)
+    if got2 != ["ram_validation_input_derivation"]:
+        _fail(f"probe derived input lane: failing {got2}")
+    # another previous block
+    got3, other = failing(previous_block_content_hash=b"\x01" + b"\x00" * 31)
+    if got3 or torch.equal(other.public_input, honest.public_input) \
+            or other.block_content_hash != honest.block_content_hash:
+        _fail(f"probe previous hash: failing {got3}, the public input unchanged")
+    # a wrong node VK
+    got4, _ = failing(node_vk_commitment=(1, 2, 3, 5))
+    want = sorted(f"{scheduler.CIRCUIT_TYPES[k]}_node_proof" for k in res.compact_forms)
+    if got4 != want:
+        _fail(f"probe node VK: failing {got4}, not every node proof")
+    return {f"carried proofs 0 and 1 of type {t} swapped": got1,
+            "a derived-input lane of type 8": got2,
+            "another previous block hash": "the public input changed, every check true",
+            "a wrong node VK": f"all {len(got4)} *_node_proof"}
+
+
+def block_full(dev, card):
+    """Phase 24: the whole block at 2^16 cycles, from the native EraVM run
+    to the scheduler's public input, with the sorter STARKs, every compact
+    commitment proven and verified, the in-field node of type 8; then four
+    negative probes on the scheduler."""
+    from zkevm_circuits_tpu_torch.models import vm
+    from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
+    from zkevm_circuits_tpu_torch.runtime import block2
+
+    t_phase = time.perf_counter()
+    n = 1 << LOG2_VM_CYCLES
+    words, kw, host = block_program(BLOCK_ITERATIONS)
+    t0 = time.perf_counter()
+    v = vm.NativeEraVM(words, n, **kw)
+    w = v.run()
+    sim_s = time.perf_counter() - t0
+    returned = int(np.argmax(np.asarray(w["cs_depth"]) == 0))
+    blobs = [blob_inputs(4096, 100 + b) for b in range(2)]
+    cfg = block_config()
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    res = block2.execute_block2_from_run(
+        v, w, words, cfg, storage=kw["storage"], code_store=kw["code_store"],
+        bootloader_heap=kw["bootloader_heap"], blobs=blobs, times=times)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    launches = KERNEL.counts()
+    peak = torch.cuda.max_memory_allocated()
+    sched = res.scheduler_result
+    if not res.ok or sorted(res.compact_forms) != list(range(1, 14)):
+        _fail(f"block at 2^{LOG2_VM_CYCLES} cycles: failing {res.failing()}")
+    if sorted(res.stark_verdicts) != [2, 8, 9, 11, 12] or not all(res.stark_verdicts.values()) \
+            or sorted(res.commitment_verdicts) != list(range(1, 14)) \
+            or not all(res.commitment_verdicts.values()) or not all(sched.checks.values()):
+        _fail(f"block: sorter verdicts {res.stark_verdicts}, commitment verdicts "
+              f"{res.commitment_verdicts}")
+    for name, count in launches.items():
+        if count <= 0:
+            _fail(f"the block launched the {name} kernel no time")
+    outputs = precompile_outputs({k: (x,) for k, x in res.witnesses.items()}, host)
+    counts = {t: int(cf.start_flag.shape[0]) for t, cf in sorted(res.compact_forms.items())}
+    stages = {k: x for k, x in times.items() if isinstance(x, list)}
+    proofs = {k: x for k, x in times.items() if not isinstance(x, list)}
+    calls = {k: len(c) for k, c in v.precompile_calls.items()}
+    print(f"block: block_program({BLOCK_ITERATIONS}) for 2^{LOG2_VM_CYCLES} cycles through the "
+          f"native EraVM (returned at cycle {returned}), host sim {sim_s:.3f} s; "
+          f"{len(v.log_tape)} log rows, {len(v.decommit_tape)} decommits, precompile calls "
+          f"{calls}, two blobs of 4,096; instances a type {counts} ({sum(counts.values())} in "
+          f"all); the block {block_s:.3f} s; stage seconds "
+          + "; ".join(f"{k} {x[0]:.4f}" for k, x in stages.items())
+          + "; proofs and scheduler seconds "
+          + "; ".join(f"{k} {x:.3f}" for k, x in proofs.items())
+          + f"; every residual, handoff ({len(res.handoffs)}), sorter verdict "
+          f"{sorted(res.stark_verdicts)}, commitment verdict (13 types) and scheduler check "
+          f"({len(sched.checks)}) true, ok; {outputs} precompile outputs the host's; public input "
+          f"{gf_ints(sched.public_input)}; Poseidon2 launches {launches}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+    t0 = time.perf_counter()
+    probes = block_probes(res)
+    print(f"block negative probes ({time.perf_counter() - t0:.2f} s): "
+          + "; ".join(f"{k}: fails {x}" for k, x in probes.items())
+          + f"; the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def gf_ints(t):
+    from zkevm_circuits_tpu_torch.ops import gf
+
+    return [int(x) for x in gf.to_u64(t)]
+
+
+# the small references' CPU sides, by name (`start_cpu_references`)
+CPU_REFERENCES = dict(sorter=_sorter_reference, circuits=_circuit_reference,
+                      vm_node=_vm_node_reference, block=lambda d: _block_reference(d)[0])
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("no CUDA device: chip_smoke.py runs only on a GPU host")
@@ -2568,9 +2901,10 @@ def main():
 
     from zkevm_circuits_tpu_torch.ops import poseidon2_cuda
 
-    # the CPU sides of phases 10 and 19 run beside the card phases, in a
-    # process of their own
-    reference = start_cpu_references()
+    # the CPU sides of phases 10, 19, 21 and 23 run beside the card phases,
+    # in two processes of their own
+    reference = start_cpu_references(("sorter", "circuits", "vm_node"))
+    block_reference = start_cpu_references(("block",))
     t0 = time.perf_counter()
     poseidon2_cuda.build(verbose=True)
     poseidon2_cuda.KERNEL.lib(dev)
@@ -2616,6 +2950,9 @@ def main():
     launches_vm_node_starks = vm_node_starks_full(dev, card, bench_w, log_vm, carried)
     del bench_w, log_vm, carried
     torch.cuda.empty_cache()
+    block_small(dev, block_reference)
+    launches_block = block_full(dev, card)
+    torch.cuda.empty_cache()
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
@@ -2630,7 +2967,8 @@ def main():
                        launches_memory_thread=launches_memory_thread[key],
                        launches_eip_4844=launches_eip_4844[key],
                        launches_circuit_starks=launches_circuit_starks[key],
-                       launches_vm_node_starks=launches_vm_node_starks[key])
+                       launches_vm_node_starks=launches_vm_node_starks[key],
+                       launches_block=launches_block[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

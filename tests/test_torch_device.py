@@ -182,3 +182,39 @@ def test_vm_and_verifier_air_entry_points_raise_without_a_device_or_a_card(no_ca
     phase1, fixed, log_n = vm_air.vm_core_trace(w, limit, device="cpu")
     assert phase1.device.type == fixed.device.type == "cpu" and log_n == 11
     assert va.fixed_columns(sched, "cpu").device.type == "cpu"
+
+
+def test_block_and_chain_pick_the_card_and_raise_without_one(no_card, monkeypatch):
+    """execute_block2, execute_block2_from_run and execute_chain raise before
+    any work without a device or a card, and hand the circuits cuda:0 when
+    there is one; run_scheduler with no compact forms follows the same rule"""
+    from zkevm_circuits_tpu_torch.models import scheduler
+    from zkevm_circuits_tpu_torch.runtime import block2, chain
+
+    code = vm.assemble_code_words(PROGRAMS["arith_families"]["prog"])
+    calls = [
+        lambda: block2.execute_block2(code),
+        lambda: block2.execute_block2_from_run(None, None, code),
+        lambda: chain.execute_chain([{"code": code}]),
+        lambda: scheduler.run_scheduler({}, {}, {}, (1, 2, 3, 4), b"\x00" * 32,
+                                        scheduler.BlockPassthroughData(),
+                                        scheduler.BlockMetaParameters(),
+                                        scheduler.BlockAuxilaryOutput()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+    class Picked(Exception):
+        pass
+
+    def picked(*args, device=None, **kw):
+        raise Picked(device)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(block2, "execute_block2_from_run", picked)
+    monkeypatch.setattr(chain, "execute_block2", picked)
+    for call in calls[:1] + calls[2:3]:
+        with pytest.raises(Picked) as got:
+            call()
+        assert got.value.args[0] == torch.device("cuda", 0)

@@ -48,7 +48,8 @@ def test_port_modules_import_without_jax():
                  "runtime.block", "prover.air_common", "prover.demux_air",
                  "prover.horner_air", "prover.sha256_air", "prover.keccak_air",
                  "prover.blake2s_air", "prover.ecrecover_air", "prover.vm_air",
-                 "prover.verifier_air", "base_structures.vm_state"):
+                 "prover.verifier_air", "base_structures.vm_state", "models.scheduler",
+                 "runtime.block2", "runtime.chain"):
         assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -51,9 +51,11 @@ def encode_recursion_queries(circuit_type: torch.Tensor, commitments: torch.Tens
 
 def build_recursion_queue(circuit_type: torch.Tensor, commitments: torch.Tensor,
                           execute: torch.Tensor) -> torch.Tensor:
-    """full-state queue chain over the recursion queries; returns (n+1, 12)."""
+    """full-state queue chain over the recursion queries; returns (n+1, 12)
+    on their device (the chain in the native runtime: one download, one
+    upload, where a step loop would be a permutation a query)."""
     enc = encode_recursion_queries(circuit_type, commitments)
-    return queues.simulate_chain(gf.zeros((12,), enc.device), enc, execute)
+    return queues.simulate_chains(queues.FULL_STATE_WIDTH, [(enc, execute)])[0]
 
 
 @dataclasses.dataclass

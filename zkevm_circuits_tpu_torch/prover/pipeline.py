@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -190,12 +191,20 @@ def _per_row_chains(w):
     return w.chain_unsorted, w.chain_sorted
 
 
+def _synced_clock(device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def prove_sorter_full(w, gp_params: Optional[StarkParams] = None,
-                      chain_params: Optional[StarkParams] = None
-                      ) -> Tuple[bool, SorterFullProof]:
+                      chain_params: Optional[StarkParams] = None,
+                      times: Optional[dict] = None) -> Tuple[bool, SorterFullProof]:
     """Prove + verify a sorter's COMPLETE argument (chains and products), on
     the witness's device.  A full-state chain's trace takes its states from
-    the witness's own per-row chain."""
+    the witness's own per-row chain.  With `times`, the prove and verify
+    seconds (each ended by a synchronize) land under "prove" and "verify"."""
+    t0 = _synced_clock(w.execute.device)
     chain_u_states, chain_s_states = _per_row_chains(w)
     n_real = int(w.execute.sum())
     tail_u = gf.to_u64(chain_u_states[n_real])
@@ -219,7 +228,11 @@ def prove_sorter_full(w, gp_params: Optional[StarkParams] = None,
 
     proof = SorterFullProof(gp_proof, gp_public, gp_params, chain_u, chain_s,
                             tail_u, tail_s, n_real)
-    return verify_sorter_full(w, proof), proof
+    t1 = _synced_clock(w.execute.device)
+    ok = verify_sorter_full(w, proof)
+    if times is not None:
+        times.update(prove=t1 - t0, verify=_synced_clock(w.execute.device) - t1)
+    return ok, proof
 
 
 def verify_sorter_full(w, full: SorterFullProof) -> bool:

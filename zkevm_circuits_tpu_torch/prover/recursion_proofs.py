@@ -15,20 +15,22 @@ enforce public input == queued commitment):
 
 The node level proves in-field that it verified its children's FRI query
 phase (`node_prove_in_field`, prover/verifier_air.py).  The scheduler's
-node-slot proof (`VerifiedNodeProof`, `scheduler_node_proof`) is not ported
-yet: it needs the scheduler.
+node-slot proof (`VerifiedNodeProof`, `scheduler_node_proof`) is built
+through that leaf path: its validity is the verifiers' verdict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import recursion
-from ..ops import gf
+from ..models import scheduler as sched_mod
+from ..ops import gf, queues
 from . import pipeline
 from . import poseidon2_air as pa
 from . import verifier_air as va
@@ -162,3 +164,88 @@ def node_verify_in_field(node: NodeInFieldProof, children: Sequence[CarriedProof
             return False
     return va.verify_fri_verification(node.vproof, [cp.proof.fri_proof for cp in children],
                                       node.child_fri_params, node.vparams)
+
+
+@dataclasses.dataclass
+class VerifiedNodeProof:
+    """A scheduler node-slot proof whose `is_valid` is the outcome of REAL
+    verification — the leaf-layer STARK checks over every instance's
+    carried commitment proof (+ its attached circuit-relation proof), and
+    optionally the node's in-field FRI-verification STARK.  The scheduler
+    consumes it duck-typed (public_input / is_valid / vk_commitment, ref
+    scheduler/mod.rs:1026-1076)."""
+
+    public_input: torch.Tensor          # (4,) node input commitment
+    is_valid: bool
+    vk_commitment: Optional[torch.Tensor] = None
+
+
+def scheduler_node_proof(
+    circuit_type: int,
+    compact_forms,
+    leaf_params,
+    node_vk_commitment: tuple,
+    relation: Optional[Tuple[object, object]] = None,
+    extra_ok: bool = True,
+    in_field: bool = False,
+) -> Tuple[VerifiedNodeProof, List[CarriedProof], bool]:
+    """Build one circuit type's scheduler node-slot proof THROUGH the leaf
+    path, on the forms' device: prove every instance's compact-form
+    commitment, verify each with the real verifier (relation proof attached
+    to instance 0), run the batched leaf checks against the queued
+    commitments, optionally prove the node's FRI verification in-field, and
+    expose the node input commitment with the verified verdict.
+
+    Returns (proof, carried, leaf_ok) — `leaf_ok` excludes `extra_ok` so
+    callers can report the leaf verdict separately."""
+    carried = make_carried_proofs(compact_forms, relation=relation)
+    proof, leaf_ok = node_slot_proof(circuit_type, compact_forms, carried, leaf_params,
+                                     node_vk_commitment, extra_ok, in_field)
+    return proof, carried, leaf_ok
+
+
+def node_slot_proof(
+    circuit_type: int,
+    compact_forms,
+    carried: Sequence[CarriedProof],
+    leaf_params,
+    node_vk_commitment: tuple,
+    extra_ok: bool = True,
+    in_field: bool = False,
+    times: Optional[dict] = None,
+) -> Tuple[VerifiedNodeProof, bool]:
+    """The part of `scheduler_node_proof` after the proofs are made: the
+    leaf checks of `carried` against the queued commitments of
+    `compact_forms`, the optional in-field node, and the slot proof.  With
+    `times`, the seconds (each ended by a synchronize) of the leaf check (the
+    carried proofs' verifications included) and of the node's prove and
+    verify land under "leaf", "node prove" and "node verify".  Returns
+    (proof, leaf_ok)."""
+    dev = compact_forms.start_flag.device
+    clock = functools.partial(pipeline._synced_clock, dev)
+    t0 = clock()
+    k = len(carried)
+    types = torch.full((k,), circuit_type, dtype=torch.int64, device=dev)
+    commitments = compact_forms.commitment().reshape((k, 4))
+    execute = torch.ones(k, dtype=torch.bool, device=dev)
+    checks = leaf_layer_verify_starks(circuit_type, types, commitments, execute, carried)
+    leaf_ok = all(bool(v.all()) for v in checks.values())
+    spent = {"leaf": clock() - t0}
+    if in_field and leaf_ok:
+        t0 = clock()
+        node = node_prove_in_field(carried)
+        t1 = clock()
+        leaf_ok = leaf_ok and node_verify_in_field(node, carried)
+        spent.update({"node prove": t1 - t0, "node verify": clock() - t1})
+    if times is not None:
+        times.update(spent)
+    qchain = recursion.build_recursion_queue(types, commitments, execute)
+    qs = queues.QueueState(gf.zeros((12,), dev), qchain[k], k)
+    commitment = sched_mod.node_input_commitment(circuit_type, leaf_params,
+                                                 node_vk_commitment, qs)
+    proof = VerifiedNodeProof(
+        public_input=commitment,
+        is_valid=bool(leaf_ok) and bool(extra_ok),
+        vk_commitment=gf.from_u64(np.array(node_vk_commitment, np.uint64), dev),
+    )
+    return proof, leaf_ok

@@ -13,8 +13,12 @@ package's block runtime wires them (zkevm_circuits_tpu/runtime/block2.py):
   tape, the unpacker's writes and the precompiles' traffic.
 
 Each returns circuit -> (witness, residuals, compact forms) and the
-handoffs between circuits.  With `times` (a dict) every stage runs twice
-and its first and steady seconds land there.
+handoffs between circuits.  With `times` (a dict) every stage's seconds
+land there.  Where a path chooses an instance size itself (demux and the
+linear hasher one instance of the next power of two, ecrecover one of the
+call count, the unpacker, keccak and sha256 split into instances of a
+limit), a keyword takes the block driver's size instead
+(`runtime/block2.py:execute_block2`).
 
 The union order of the memory thread is decided here, in `_thread_order`:
 each circuit's rows reach ram_permutation in its own memory chain's order
@@ -79,13 +83,14 @@ def soa_rows(soa, mask) -> list:
     return rows
 
 
-def stage(times, name, fn):
-    """fn() once, or, with `times`, twice (first and steady seconds, each ended
-    by a synchronize); returns the last result."""
+def stage(times, name, fn, runs=1):
+    """fn(); with `times`, run `runs` times and its seconds (first, then
+    steady, each ended by a synchronize) land under `name`; returns the last
+    result."""
     if times is None:
         return fn()
     seconds = []
-    for _ in range(2):
+    for _ in range(runs):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -146,12 +151,18 @@ def _decommit_sorter(circuit, rows, sorter_limit, device):
                    lambda x: sd.instance_compact_forms(x, ccfg))
 
 
-def log_path(v, w, limits, device, times=None):
+def log_path(v, w, limits, device, times=None, *, demux_limit=None, hasher_limit=None,
+             skip_empty=False):
     """The block's log and decommit queues after one VM run: `v` the EraVM
     after `run()`, `w` its witness dict, `limits` the instance limits (vm,
-    sorter), `device` where the circuits run.  Returns (results: circuit ->
-    (witness, residuals, compact forms), handoffs, the L1 digest, the host
-    keccak of the survivors, counts)."""
+    sorter), `device` where the circuits run.  `demux_limit` / `hasher_limit`
+    (None: one instance of the next power of two of the rows) pad demux and
+    the linear hasher to a multiple of it, one instance; with `skip_empty`
+    the storage, events and L1 sorters run only on a nonempty stream and the
+    hasher only after the L1 sorter, as the JAX block runtime does.  Returns
+    (results: circuit -> (witness, residuals, compact forms), handoffs, the
+    L1 digest (None without a hasher), the host keccak of the survivors,
+    counts)."""
     vm_limit, sorter_limit = limits
     out, handoffs = {}, {}
     cycles = len(w["ts"]) - 1
@@ -169,7 +180,7 @@ def log_path(v, w, limits, device, times=None):
         (cw.chain_unsorted[cw.n] == dw["dec_q_state"][-1]).all()) and cw.n == int(w["dec_q_len"][-1])
 
     # type 4: demux of the whole log tape, one instance
-    dcfg = dm.DemuxConfig(limit=next_pow2(len(rows["logs"])))
+    dcfg = dm.DemuxConfig(limit=demux_limit or next_pow2(len(rows["logs"])))
     dmw = circuit("demux_log_queue",
                   lambda: dm.generate_witness(LogQueries.from_lists(rows["logs"], device), dcfg),
                   lambda x: dm.eval_constraints(x, dcfg), lambda x: dm.instance_compact_form(x, dcfg))
@@ -180,17 +191,21 @@ def log_path(v, w, limits, device, times=None):
 
     # type 9, then types 11 / 12
     vcfg = sv.StorageValidityConfig(limit=sorter_limit)
-    svw = circuit("storage_validity",
-                  lambda: sv.generate_witness(
-                      LogQueries.from_lists(rows["storage"], device),
-                      LogQueries.from_lists(rows["storage_sorted"], device), rows["storage_ts"],
-                      vcfg),
-                  lambda x: sv.eval_constraints(x, vcfg), lambda x: sv.instance_compact_forms(x, vcfg))
-    handoffs["demux_to_storage_sorter"] = _tails_equal(
-        QueueState(zeros4, svw.chain_unsorted[svw.execute.shape[0]], svw.n),
-        out_states["rollup_storage"])
+    if rows["storage"] or not skip_empty:
+        svw = circuit("storage_validity",
+                      lambda: sv.generate_witness(
+                          LogQueries.from_lists(rows["storage"], device),
+                          LogQueries.from_lists(rows["storage_sorted"], device),
+                          rows["storage_ts"], vcfg),
+                      lambda x: sv.eval_constraints(x, vcfg),
+                      lambda x: sv.instance_compact_forms(x, vcfg))
+        handoffs["demux_to_storage_sorter"] = _tails_equal(
+            QueueState(zeros4, svw.chain_unsorted[svw.execute.shape[0]], svw.n),
+            out_states["rollup_storage"])
     scfg = ls.LogSorterConfig(limit=sorter_limit)
     for ctype, qname in ((11, "events"), (12, "l1_messages")):
+        if skip_empty and not rows[qname]:
+            continue
         sw = circuit(f"log_sorter_{ctype}",
                      lambda: ls.generate_witness(LogQueries.from_lists(rows[qname], device),
                                                  LogQueries.from_lists(rows[qname + "_sorted"], device),
@@ -201,17 +216,20 @@ def log_path(v, w, limits, device, times=None):
             QueueState(zeros4, sw.chain_unsorted[sw.execute.shape[0]], sw.n), out_states[qname])
 
     # type 13: the L1 sorter's survivors, one instance
-    lw = out["log_sorter_12"][0]
-    total = lw.execute.shape[0]
-    survivors = soa_rows(lw.result_items, lw.result_add)
-    hcfg = lh.LinearHasherConfig(limit=next_pow2(max(1, len(survivors))))
-    hw = circuit("linear_hasher",
-                 lambda: lh.generate_witness(LogQueries.from_lists(survivors, device), hcfg),
-                 lambda x: lh.eval_constraints(x, hcfg), lambda x: lh.instance_compact_form(x, hcfg))
-    handoffs["l1_sorter_to_hasher"] = _tails_equal(
-        QueueState(zeros4, hw.input_chain[hw.execute.shape[0]], hw.n),
-        QueueState(zeros4, lw.result_chain[total + 1], lw.result_count[total]))
-    digest = bytes(hw.digest.cpu().tolist())
+    survivors, digest = [], None
+    if "log_sorter_12" in out:
+        lw = out["log_sorter_12"][0]
+        total = lw.execute.shape[0]
+        survivors = soa_rows(lw.result_items, lw.result_add)
+        hcfg = lh.LinearHasherConfig(limit=hasher_limit or next_pow2(max(1, len(survivors))))
+        hw = circuit("linear_hasher",
+                     lambda: lh.generate_witness(LogQueries.from_lists(survivors, device), hcfg),
+                     lambda x: lh.eval_constraints(x, hcfg),
+                     lambda x: lh.instance_compact_form(x, hcfg))
+        handoffs["l1_sorter_to_hasher"] = _tails_equal(
+            QueueState(zeros4, hw.input_chain[hw.execute.shape[0]], hw.n),
+            QueueState(zeros4, lw.result_chain[total + 1], lw.result_count[total]))
+        digest = bytes(hw.digest.cpu().tolist())
     expected = keccak.keccak256_ref(b"".join(lh.serialize_l2_l1_ref(r) for r in survivors))
     counts = {name: len(rows[name]) for name in ("logs", "storage", "events", "l1_messages")}
     counts.update(rollbacks=sum(bool(r["rollback"]) for r in rows["logs"]),
@@ -247,14 +265,15 @@ def _timed_tree(storage, spent):
     return tree, counter
 
 
-def storage_application(svw, storage: dict, device, times=None):
+def storage_application(svw, storage: dict, device, times=None, max_rows=None):
     """Type 10 on storage_validity's survivors (`svw` its witness): the tree
-    seeded from the initial storage snapshot, one instance of the next power
-    of two of stage rows.  With `times`, "storage_application tree" holds the
-    seconds of the tree's own work in each witness run.  Returns (witness,
-    residuals, compact form, survivors)."""
+    seeded from the initial storage snapshot, one instance of `max_rows`
+    stage rows (None: the next power of two of the rows).  With `times`,
+    "storage_application tree" holds the seconds of the tree's own work in
+    each witness run.  Returns (witness, residuals, compact form,
+    survivors)."""
     survivors = soa_rows(svw.push_items, svw.push_flags)
-    cfg = sa.StorageApplicationConfig(max_rows=next_pow2(sum(
+    cfg = sa.StorageApplicationConfig(max_rows=max_rows or next_pow2(sum(
         2 if q["rw_flag"] else 1 for q in survivors)))
     tree_s = []
 
@@ -319,39 +338,55 @@ def _thread_order(reads, read_call, n_reads, writes, per_call, n_calls):
     return q, order
 
 
-def memory_thread(v, w, code_store: dict, limits, device, times=None):
+def memory_thread(v, w, code_store: dict, limits, device, times=None, *, done=None,
+                  capacities=None, ec_calls=0):
     """The memory thread after one EraVM run: main_vm over the run, the
     decommit sorter, the code unpacker on its result queue, the keccak,
     sha256 and ecrecover circuits, and ram_permutation over the union (in
-    `_thread_order`).  `code_store` is the program's ({code hash: words});
-    `limits` (unpacker and sha256 rounds, keccak blocks, decommit sorter
-    rows, ram rows) are the instance sizes: each circuit's `max_*` is the
-    next multiple of its limit, ecrecover one instance of the call count.
+    `_thread_order`).  `code_store` is the program's ({code hash: words};
+    the bootloader's own code is taken from it when there, else from the
+    run); `limits` (unpacker and sha256 rounds, keccak blocks, decommit
+    sorter rows, ram rows) are the instance sizes: each circuit's `max_*` is
+    the next multiple of its limit, ecrecover one instance of the call count
+    (at least `ec_calls`).  With `capacities` (unpacker rounds, keccak
+    blocks, keccak reads, sha256 rounds), the unpacker, keccak or sha256 runs
+    as ONE instance of those sizes when the run's need fits them, as the JAX
+    block runtime runs it, and is split into instances of `limits` only
+    when it does not.  `done`, results of `log_path` on the same run, gives
+    main_vm and the decommit sorter without running them again.
 
     Returns (results: circuit -> (witness, residuals, compact forms),
     handoffs, counts)."""
     round_limit, block_limit, sorter_limit, ram_limit = limits
     out, handoffs = {}, {}
-    dw = vm.prepare_device_witness(w, device=device)
-    out["main_vm"] = (dw, stage(times, "main_vm eval",
-                                lambda: vm.eval_constraints(dw, len(w["ts"]) - 1)), None)
     circuit = _circuits(out, times)
-
-    # type 2: the decommit sorter over the boot push and the VM's requests
     rows = block_rows(v)
-    cw = _decommit_sorter(circuit, rows, sorter_limit, device)
+    if done is not None:
+        out["main_vm"], out["sort_decommittments"] = done["main_vm"], done["sort_decommittments"]
+        cw = out["sort_decommittments"][0]
+    else:
+        dw = vm.prepare_device_witness(w, device=device)
+        out["main_vm"] = (dw, stage(times, "main_vm eval",
+                                    lambda: vm.eval_constraints(dw, len(w["ts"]) - 1)), None)
+        # type 2: the decommit sorter over the boot push and the VM's requests
+        cw = _decommit_sorter(circuit, rows, sorter_limit, device)
 
     # type 3: the unpacker on the sorter's result queue, from the VM's last memory state
     vm_final = gf.from_u64(np.asarray(w["mem_q_state"][-1], np.uint64))
     uniq = soa_rows(cw.result_items, cw.result_add)
-    store = {**code_store, v.boot_code_hash: v.code_words}
+    store = dict(code_store)
+    if v.boot_code_hash not in store:
+        store[v.boot_code_hash] = v.code_words
     n_rounds = sum(((int(r["code_hash"]) >> 224 & 0xFFFF) + 1) // 2 for r in uniq)
-    ucfg = cu.CodeUnpackerConfig(max_rounds=_ceil_to(n_rounds, round_limit))
+    split = capacities is None or n_rounds > capacities[0]
+    ucfg = cu.CodeUnpackerConfig(
+        max_rounds=_ceil_to(n_rounds, round_limit) if split else capacities[0])
     uw = circuit("code_unpacker",
                  lambda: cu.generate_witness(uniq, store, ucfg, mem_init_state=vm_final,
                                              device=device),
                  lambda x: cu.eval_constraints(x, ucfg),
-                 lambda x: cu.instance_compact_forms(x, ucfg, round_limit))
+                 lambda x: (cu.instance_compact_forms(x, ucfg, round_limit) if split
+                            else cu.instance_compact_form(x, ucfg)))
     total = cw.execute.shape[0]
     handoffs["decommit_sorter_to_unpacker"] = (
         _same(uw.request_chain[-1], cw.result_chain[total + 1])
@@ -370,14 +405,17 @@ def memory_thread(v, w, code_store: dict, limits, device, times=None):
         spans = [kc._call_span(c, memory) for c in kcalls]
         n_blocks = sum(len(p) // kc.RATE + 1 for _, _, p in spans)
         n_reads = sum(len(wds) for _, wds, _ in spans)
-        kcfg = kc.KeccakRoundFunctionConfig(max_blocks=_ceil_to(n_blocks, block_limit),
-                                            max_reads=n_reads)
+        split = capacities is None or n_blocks > capacities[1] or n_reads > capacities[2]
+        kcfg = (kc.KeccakRoundFunctionConfig(max_blocks=_ceil_to(n_blocks, block_limit),
+                                             max_reads=n_reads) if split else
+                kc.KeccakRoundFunctionConfig(max_blocks=capacities[1], max_reads=capacities[2]))
         init = thread
         kw = circuit("keccak256",
                      lambda: kc.generate_witness(kcalls, memory, kcfg, mem_init_state=init,
                                                  device=device),
                      lambda x: kc.eval_constraints(x, kcfg),
-                     lambda x: kc.instance_compact_forms(x, kcfg, block_limit))
+                     lambda x: (kc.instance_compact_forms(x, kcfg, block_limit) if split
+                                else kc.instance_compact_form(x, kcfg)))
         handoffs["thread_to_keccak256"] = _same(kw.mem_chain[0], thread)
         parts.append(_thread_order(kw.reads, kw.read_call, n_reads, kw.writes, 1, len(kcalls)))
         thread = kw.mem_chain[-1]
@@ -385,13 +423,16 @@ def memory_thread(v, w, code_store: dict, limits, device, times=None):
     scalls = calls["sha256"]
     if scalls:
         rounds = [(int(c["key"]) >> 192) & 0xFFFFFFFF for c in scalls]
-        scfg = sh.Sha256RoundFunctionConfig(max_rounds=_ceil_to(sum(rounds), round_limit))
+        split = capacities is None or sum(rounds) > capacities[3]
+        scfg = sh.Sha256RoundFunctionConfig(
+            max_rounds=_ceil_to(sum(rounds), round_limit) if split else capacities[3])
         init = thread
         sw = circuit("sha256",
                      lambda: sh.generate_witness(scalls, memory, scfg, mem_init_state=init,
                                                  device=device),
                      lambda x: sh.eval_constraints(x, scfg),
-                     lambda x: sh.instance_compact_forms(x, scfg, round_limit))
+                     lambda x: (sh.instance_compact_forms(x, scfg, round_limit) if split
+                                else sh.instance_compact_form(x, scfg)))
         handoffs["thread_to_sha256"] = _same(sw.mem_chain[0], thread)
         read_call = sw.round_call.repeat_interleave(2)
         parts.append(_thread_order(sw.reads, read_call, 2 * sum(rounds), sw.writes, 1,
@@ -400,7 +441,7 @@ def memory_thread(v, w, code_store: dict, limits, device, times=None):
         counts.update(sha256_calls=len(scalls), sha256_rounds=sum(rounds))
     ecalls = calls["ecrecover"]
     if ecalls:
-        ecfg = ecr.EcrecoverConfig(max_calls=len(ecalls))
+        ecfg = ecr.EcrecoverConfig(max_calls=max(ec_calls, len(ecalls)))
         init = thread
         ew = circuit("ecrecover",
                      lambda: ecr.generate_witness(ecalls, memory, ecfg, mem_init_state=init,
