@@ -126,12 +126,12 @@ Phases, each printed on its own line:
      `runtime/block.py` on the data of phases 14, 17 and 18: the demux proof
      over the log path's rows (type 4), a keccak proof of the L1 stream (13),
      per blob the Horner proof and three keccak chains (255), the ecrecover
-     ladders of every call (7), a sha256 chain per unique unpacked code (3),
-     the first 8 calls of the sha256 and keccak precompiles (6, 5; cut 2), the
-     first 2^13 blake2s compressions of storage application (10); each proof
-     made and verified on the card (demux and L1 twice, first and steady;
-     ecrecover and blake2s once): rows x columns, prove and verify seconds,
-     peak device memory,
+     ladders of every call (7), a sha256 chain for each of the first 3
+     unique unpacked codes (3; cut 6), the first 4 calls of the sha256 and
+     keccak precompiles (6, 5; cuts 2 and 7), the first 2^13 blake2s compressions
+     of storage application (10); each proof made and verified on the card
+     once (cut 5): rows x columns, prove and verify seconds, peak device
+     memory,
      each kernel's launches, every verdict true; negative probes (a rerouted
      element, a wrong opening, a flipped digest byte or word, a changed
      message byte, a flipped scalar bit) each rejected;
@@ -140,11 +140,10 @@ Phases, each printed on its own line:
      constraint residuals, all zero) and the FRI-verifier node STARK over two
      compact-form children (a whole proof, as nested ints) made on the card
      equal those made on the CPU;
- 22. main_vm and node STARKs, full width: `vm_air.prove_vm_core` /
-     `verify_vm_core` over phase 9's 2^16-cycle bench-loop witness (2^17 x
-     1,922), with the host trace builder timed alone; the type-1 writer
-     `block.vm_verdict` over phase 14's 2^16-cycle log-heavy run (its
-     `debug_residuals` printed first), `vm_code_reads_on_tape` against the
+ 22. main_vm and node STARKs, full width: the type-1 writer
+     `block.vm_verdict` (`vm_air.prove_vm_core` / `verify_vm_core`, 2^17 x
+     1,922) over phase 14's 2^16-cycle log-heavy run (its
+     `debug_residuals` printed first; cut 4), `vm_code_reads_on_tape` against the
      run's memory tape; `node_prove_in_field` / `node_verify_in_field` over
      the 16 carried proofs of phase 11; each proof's rows x columns, prove
      and verify seconds, peak memory and launches; four negative probes (a
@@ -169,14 +168,32 @@ Phases, each printed on its own line:
      (each kernel above 0); every verdict, commitment verdict and scheduler
      check true, ok; four negative probes on the scheduler (one carried
      proof swapped between two instances, a derived-input lane, another
-     previous block, a wrong node VK) each failing where it must.
+     previous block, a wrong node VK) each failing where it must;
+ 25. multi-device: `entry.dryrun_multichip` with one rank a card on every
+     card of the machine (spawned processes, NCCL): the row-sharded ram
+     check at 2^16 rows in 8 instances, the instances' compact forms over
+     the mesh's "inst" axis, main_vm through `parallel.auto.eval_sharded` at
+     2^14 cycles (a register tamper at a shard boundary caught) and through
+     `vm_eval_instances_sharded` at 2^16 cycles in 16 instances, the
+     sharded commit of phase 4's trace bit-identical to `_commit_columns`
+     and the proof made through it verified; each of its phases prints a
+     line from rank 0 (seconds, world size, rank 0's launches, the card);
+     rank 0's sharded-commit proof must equal phase 4's proof as nested
+     ints.
 
-Cuts of depth made so that phases 23-24 fit the script's time (on an H100
+Cuts of depth made so that phases 23-25 fit the script's time (on an H100
 at 700 W the script took 596-698 s without them, 713 s with them and no
 cut), in this order: (1) phases 14 and 17 run each stage once, not twice (first
 and steady); (2) phase 20 proves the first 8 calls of types 5 and 6, not
 16; (3) phase 11 proves the sorter argument once, without its steady
-rerun.  Every path is still driven.
+rerun; (4) for phase 25, phase 22 proves the main_vm STARK over the log
+path's run only, not also over the bench loop (the same 2^17 x 1,922
+shape); (5) phase 20 proves demux and the L1 keccak once, not twice (first
+and steady); (6) phase 20 proves the sha256 chains of the first 3 unique
+unpacked codes, not all 12 (one shape, 2^15 x 819); (7) phase 20 proves the
+first 4 calls of types 5 and 6, not 8.  The script took 687 and 717 s with
+cuts 1-4 (two runs), 647 and 716 s with cuts 1-5 and 6 codes (two runs on
+the same tree).  Every path is still driven.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -245,7 +262,8 @@ PROBE_SLOT = 5
 CIRCUIT_REF_BLOB = 8
 CIRCUIT_REF_QUERIES = 4
 CPU_REF_THREADS = 2  # the CPU references' torch threads, beside the card phases
-PRECOMPILE_PROOF_CALLS = 8
+PRECOMPILE_PROOF_CALLS = 4  # a proof a call (cuts 2 and 7)
+UNPACKER_PROOF_CODES = 3  # of 12 unique codes, one shape (cut 6)
 # The bench loop's rounds (bench.py runs 0xFFFF): four cycles a round, so it
 # returns at cycle 65,534 and its last rows are the skip rows of a finished
 # run, which the main_vm AIR needs (ROADMAP Queue 3: a run cut at its cycle
@@ -869,7 +887,7 @@ def vm_eval_full(dev, card):
     if not bad:
         _fail("main_vm negative probe: a changed register limb was accepted")
     print(f"main_vm negative probe: a changed limb of r1 at row {n // 2} fails {bad}", flush=True)
-    return launches, w
+    return launches
 
 
 def _sorter_full_ints(full):
@@ -2349,13 +2367,10 @@ def circuit_starks_small(dev, reference):
           f"{waited:.1f} s)", flush=True)
 
 
-def _report(rec, card, steady=None):
-    """One proof's line: rows x columns, prove and verify seconds (first,
-    and steady when a second run was made), peak memory, launches."""
-    when = (f"prove {rec['prove_s']:.3f} / {steady['prove_s']:.3f} s, verify "
-            f"{rec['verify_s']:.3f} / {steady['verify_s']:.3f} s (first / steady)"
-            if steady is not None else
-            f"prove {rec['prove_s']:.3f} s, verify {rec['verify_s']:.3f} s")
+def _report(rec, card):
+    """One proof's line: rows x columns, prove and verify seconds, peak
+    memory, launches."""
+    when = f"prove {rec['prove_s']:.3f} s, verify {rec['verify_s']:.3f} s"
     print(f"  {rec['name']}: {rec['rows']} x {rec['cols']} ({int(rec['rows']).bit_length() - 1}"
           f" log2 rows); {when}; peak {rec['peak_bytes'] / 2**30:.2f} GiB; launches "
           f"{rec['launches']}; verdict {rec['ok']} [{card}]", flush=True)
@@ -2381,12 +2396,10 @@ def circuit_starks_full(dev, card, log_in, mem_in, blobs):
     blob the Horner proof and three keccak chains, the ecrecover ladders of
     every call, a sha256 chain per unique unpacked code, the first calls of
     the sha256 and keccak precompiles, the first 2^13 blake2s compressions of
-    storage application.  Each proof is made and verified on the card; the
-    demux and L1 proofs run twice (first, steady; the other types' steady
-    times are their later proofs of one shape: blob 1, codes 1-11, calls
-    1-15).  ecrecover and blake2s run once, for the script's 600 s: their
-    reruns took 53-58 s and their first and steady times differed by less
-    than 11 % (PERF.md).  Then a negative probe on each AIR."""
+    storage application.  Each proof is made and verified on the card once
+    (cut 5: the demux and L1 reruns dropped; the steady times are the later
+    proofs of one shape: blob 1, codes 1-2, calls 1-3).  Then a negative
+    probe on each AIR."""
     from zkevm_circuits_tpu_torch.isa import system_params as sp
     from zkevm_circuits_tpu_torch.models import storage_application as sa
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
@@ -2398,21 +2411,17 @@ def circuit_starks_full(dev, card, log_in, mem_in, blobs):
     KERNEL.reset_counts()
     verdicts, logs = {}, {}
 
-    def write(key, fn, twice=False):
+    def write(key, fn):
         logs[key] = []
         fn(logs[key])
-        if twice:
-            logs[key + " steady"] = []
-            fn(logs[key + " steady"])
 
-    write("demux", lambda lg: block.demux_verdict(log_in["log_rows"], None, verdicts, log=lg),
-          twice=True)
+    write("demux", lambda lg: block.demux_verdict(log_in["log_rows"], None, verdicts, log=lg))
     write("l1", lambda lg: block.l1_verdict(log_in["hw"], log_in["l1_hash"], None, verdicts,
-                                            log=lg), twice=True)
+                                            log=lg))
     write("blobs", lambda lg: block.blob_verdict(blobs, None, verdicts, log=lg))
     write("ecrecover", lambda lg: block.ecrecover_verdict(mem_in["ew"], None, verdicts, log=lg))
     write("unpacker", lambda lg: block.code_unpacker_verdict(mem_in["uw"], None, verdicts,
-                                                             log=lg))
+                                                             limit=UNPACKER_PROOF_CODES, log=lg))
     write("sha256", lambda lg: block.sha256_verdict(mem_in["sw"], None, verdicts,
                                                     limit=PRECOMPILE_PROOF_CALLS, log=lg))
     write("keccak", lambda lg: block.keccak_verdict(mem_in["kw"], mem_in["kcalls"],
@@ -2427,10 +2436,11 @@ def circuit_starks_full(dev, card, log_in, mem_in, blobs):
           f"made and verified on the card in {phase_s:.1f} s; Poseidon2 launches over the phase "
           f"{launches} [{card}]", flush=True)
     for key in ("demux", "l1", "ecrecover", "blake2s"):
-        _report(logs[key][0], card, logs[key + " steady"][0] if key + " steady" in logs else None)
+        _report(logs[key][0], card)
     for rec in logs["blobs"]:
         _report(rec, card)
-    _summary("sha256 (3), a proof per unique code", logs["unpacker"], card)
+    _summary(f"sha256 (3), the first {UNPACKER_PROOF_CODES} unique codes", logs["unpacker"],
+             card)
     _summary(f"sha256 (6), the first {PRECOMPILE_PROOF_CALLS} calls", logs["sha256"], card)
     _summary(f"keccak (5), the first {PRECOMPILE_PROOF_CALLS} calls", logs["keccak"], card)
     if not all(verdicts.values()) or sorted(verdicts) != [3, 4, 5, 6, 7, 10, 13, 255]:
@@ -2555,11 +2565,12 @@ def vm_node_starks_small(dev, reference):
           flush=True)
 
 
-def vm_node_starks_full(dev, card, bench_w, log_vm, carried):
-    """Phase (f): the main_vm committed-trace STARK over the 2^16-cycle bench
-    loop, the type-1 writer over the log path's run, and the node STARK over
-    the sorter's 16 carried proofs, each made and verified on the card; then
-    four negative probes."""
+def vm_node_starks_full(dev, card, log_vm, carried):
+    """Phase 22: the type-1 writer (the main_vm committed-trace STARK) over
+    the log path's 2^16-cycle run and the node STARK over the sorter's 16
+    carried proofs, each made and verified on the card; then four negative
+    probes.  Cut 4: the bench loop's proof of the same 2^17 x 1,922 shape
+    is not made."""
     import dataclasses
 
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
@@ -2572,15 +2583,7 @@ def vm_node_starks_full(dev, card, bench_w, log_vm, carried):
 
     t_phase = time.perf_counter()
     KERNEL.reset_counts()
-    n = 1 << LOG2_VM_CYCLES
-    t0 = time.perf_counter()
-    phase1, _, log_n = vm_air.vm_core_trace(bench_w, n)
-    torch.cuda.synchronize()
-    trace_s = time.perf_counter() - t0
-    del phase1
-    logs = dict(bench=[], log_path=[], node=[])
-    ok = block._proved(logs["bench"], "main_vm (1), bench loop", vm_air.vm_core_air(), None,
-                       lambda: vm_air.prove_vm_core(bench_w, n), vm_air.verify_vm_core)
+    logs = dict(log_path=[], node=[])
     v, w, log_n_cycles = log_vm
     t0 = time.perf_counter()
     residuals = vm_air.debug_residuals(w, log_n_cycles)
@@ -2603,24 +2606,22 @@ def vm_node_starks_full(dev, card, bench_w, log_vm, carried):
     torch.cuda.synchronize()
     launches = KERNEL.counts()
     phase_s = time.perf_counter() - t_phase
-    print(f"main_vm and node STARKs: host trace of the bench loop ({n} cycles, 2^{log_n} rows) "
-          f"{trace_s:.3f} s; the log path's {log_n_cycles}-cycle run: debug_residuals "
+    print(f"main_vm and node STARKs: the log path's {log_n_cycles}-cycle run: debug_residuals "
           f"{residuals or 'none failing'} ({residuals_s:.1f} s), type-1 writer {writer_s:.1f} s "
           f"(the tape check included), verdicts {verdicts}, vm_code_reads_on_tape {on_tape}; "
           f"the phase {phase_s:.1f} s; Poseidon2 launches over the phase {launches} [{card}]",
           flush=True)
-    for key in ("bench", "log_path", "node"):
+    for key in ("log_path", "node"):
         _report(logs[key][0], card)
-    if not (ok and log_ok and on_tape and node_ok) or verdicts != {1: True}:
-        _fail(f"main_vm / node STARKs: bench {ok}, log path {log_ok}, on tape {on_tape}, "
-              f"node {node_ok}")
+    if not (log_ok and on_tape and node_ok) or verdicts != {1: True}:
+        _fail(f"main_vm / node STARKs: log path {log_ok}, on tape {on_tape}, node {node_ok}")
     for name in ("permutation", "permutation_small"):
         if launches[name] <= 0:
             _fail(f"the main_vm and node STARKs launched the {name} kernel no time")
 
     # negative probes, each must verify false
     probes = {}
-    rec = logs["bench"][0]
+    rec = logs["log_path"][0]
     proof, s_in, s_out, reads, params = rec["proof"], *rec["rest"]
     forged = s_out.copy()
     forged[-1] ^= np.uint64(1)
@@ -2879,6 +2880,31 @@ def block_full(dev, card):
     return launches
 
 
+def multichip(card, proof):
+    """Phase 25: `entry.dryrun_multichip` with one rank a card on every card
+    of the machine; its rank-0 sharded-commit proof must equal phase 4's
+    single-device proof.  Returns rank 0's launches over the dry run."""
+    from zkevm_circuits_tpu_torch import entry
+    from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(world)
+    seconds = time.perf_counter() - t0
+    if out["proof"] != proof_to_ints(proof) or not out["proof_equal"]:
+        _fail("multichip: the sharded-commit proof differs from phase 4's single-device proof")
+    launches = {k: sum(r["launches"][k] for r in out["records"].values())
+                for k in ("permutation", "permutation_small", "chain_segmented")}
+    phases = "; ".join(f"{k} {r['seconds']:.3f} s" for k, r in out["records"].items())
+    print(f"multichip: dryrun_multichip over {world} card(s), mesh {out['mesh']}, every phase "
+          f"true, the rank-0 sharded-commit proof of 2^{LOG2_ROWS} rows equal to phase 4's "
+          f"proof; phases {phases}; the whole dry run {seconds:.1f} s with the ranks' start; "
+          f"rank-0 Poseidon2 launches {launches} [{card}]", flush=True)
+    return launches
+
+
 def gf_ints(t):
     from zkevm_circuits_tpu_torch.ops import gf
 
@@ -2925,7 +2951,7 @@ def main():
     del w
     torch.cuda.empty_cache()
     vm_eval_small(dev)
-    launches_vm_eval, bench_w = vm_eval_full(dev, card)
+    launches_vm_eval = vm_eval_full(dev, card)
     sorter_full_small(dev, reference)
     w, full, forms, carried, launches_sorter_full = sorter_full_path(dev, card)
     sorter_full_probes(w, full, forms, carried)
@@ -2947,12 +2973,13 @@ def main():
     del log_inputs, mem_inputs, blobs
     torch.cuda.empty_cache()
     vm_node_starks_small(dev, reference)
-    launches_vm_node_starks = vm_node_starks_full(dev, card, bench_w, log_vm, carried)
-    del bench_w, log_vm, carried
+    launches_vm_node_starks = vm_node_starks_full(dev, card, log_vm, carried)
+    del log_vm, carried
     torch.cuda.empty_cache()
     block_small(dev, block_reference)
     launches_block = block_full(dev, card)
     torch.cuda.empty_cache()
+    launches_multichip = multichip(card, proof)
 
     sources = dict(permutation=KERNEL_SOURCE, permutation_small=COOP_SOURCE,
                    chain_segmented=COOP_SOURCE)
@@ -2968,7 +2995,8 @@ def main():
                        launches_eip_4844=launches_eip_4844[key],
                        launches_circuit_starks=launches_circuit_starks[key],
                        launches_vm_node_starks=launches_vm_node_starks[key],
-                       launches_block=launches_block[key])
+                       launches_block=launches_block[key],
+                       launches_multichip=launches_multichip[key])
         if not sum(by_path.values()):
             _fail(f"no path launched the {key} kernel")
         kernels.append(dict(name=f"poseidon2_{key}", route="cuda", source=sources[key],

@@ -218,3 +218,59 @@ def test_block_and_chain_pick_the_card_and_raise_without_one(no_card, monkeypatc
         with pytest.raises(Picked) as got:
             call()
         assert got.value.args[0] == torch.device("cuda", 0)
+
+
+def test_multi_device_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The mesh, the world and the dry run pick the card by default and raise
+    without one; a world of more ranks than cards raises; nothing gives way
+    to gloo."""
+    import torch_parallel_ranks as ranks
+    from zkevm_circuits_tpu_torch import entry
+    from zkevm_circuits_tpu_torch.parallel import mesh as meshlib
+
+    rendezvous = str(tmp_path / "rendezvous")
+    for call in (lambda: meshlib.make_mesh(), lambda: meshlib.init_world(0, 1, None, rendezvous),
+                 lambda: meshlib.run_world(ranks.failing_rank, 1),
+                 lambda: entry.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in (lambda: meshlib.init_world(0, 2, "cuda", rendezvous),
+                 lambda: meshlib.run_world(ranks.failing_rank, 2, "cuda")):
+        with pytest.raises(RuntimeError, match="2 ranks need 2 CUDA cards"):
+            call()
+
+
+def test_a_cpu_mesh_is_a_gloo_mesh(tmp_path):
+    import torch.distributed as dist
+
+    from zkevm_circuits_tpu_torch.parallel import mesh as meshlib
+
+    dev = meshlib.init_world(0, 1, "cpu", str(tmp_path / "rendezvous"))
+    try:
+        mesh = meshlib.make_mesh(device="cpu")
+        assert dev == torch.device("cpu") and mesh.device == dev
+        assert mesh.shape == {"inst": 1, "rows": 1}
+        assert dist.get_backend() == "gloo"
+        assert dist.get_backend(mesh.group("rows")) == dist.get_backend(mesh.group("inst")) == "gloo"
+        with pytest.raises(RuntimeError, match="a cuda mesh needs a nccl world, not gloo"):
+            meshlib.make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_failing_or_overrunning_rank_raises(tmp_path):
+    """A rank's error comes back with its traceback; a rank that has not
+    finished by the deadline is stopped and the world raises."""
+    import time
+
+    import torch_parallel_ranks as ranks
+    from zkevm_circuits_tpu_torch.parallel import mesh as meshlib
+
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed(.|\n)*ValueError: rank 1 fails"):
+        meshlib.run_world(ranks.failing_rank, 2, "cpu", deadline_s=60, threads=1,
+                          init_dir=str(tmp_path))
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[0\] did not finish within 10 s"):
+        meshlib.run_world(ranks.sleeping_rank, 1, "cpu", deadline_s=10, threads=1,
+                          init_dir=str(tmp_path))
+    assert time.monotonic() - t0 < 30

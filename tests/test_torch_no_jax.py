@@ -49,7 +49,8 @@ def test_port_modules_import_without_jax():
                  "prover.horner_air", "prover.sha256_air", "prover.keccak_air",
                  "prover.blake2s_air", "prover.ecrecover_air", "prover.vm_air",
                  "prover.verifier_air", "base_structures.vm_state", "models.scheduler",
-                 "runtime.block2", "runtime.chain"):
+                 "runtime.block2", "runtime.chain", "parallel", "parallel.mesh",
+                 "parallel.sharded", "parallel.prover", "parallel.auto", "utils.shard_plan"):
         assert f"zkevm_circuits_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -58,6 +59,15 @@ def test_port_modules_import_without_jax():
         + _FORBIDDEN_CHECK
     )
     env = dict(os.environ, PYTHONPATH=_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_rank_helpers_of_the_parallel_tests_import_no_jax():
+    """The ranks of the multi-rank tests import tests/torch_parallel_ranks.py."""
+    code = "import sys; import torch_parallel_ranks\n" + _FORBIDDEN_CHECK
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_ROOT, os.path.join(_ROOT, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

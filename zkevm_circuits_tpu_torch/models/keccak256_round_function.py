@@ -30,6 +30,7 @@ device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from ..isa.system_params import KECCAK256_PRECOMPILE_FORMAL_ADDRESS, PRECOMPILE_
 from ..ops import keccak, queues
 from ..ops.keccak import KECCAK_RATE_BYTES as RATE
 from ..utils.device import resolve_device
+from ..utils.shard_plan import RowWindow, ShardPlan
 from . import precompile_common as pc
 
 MEMORY_QUERIES_PER_CYCLE = 6  # ref input.rs:23
@@ -255,9 +257,11 @@ def _call_read_start(read_call: torch.Tensor, num_calls: int) -> torch.Tensor:
                                  torch.where(keep, idx, torch.full_like(idx, R)), reduce="amin")
 
 
-def eval_constraints(w: KeccakRoundWitness, config: KeccakRoundFunctionConfig) -> dict:
+def eval_constraints(w: KeccakRoundWitness, config: KeccakRoundFunctionConfig,
+                     window: Optional[RowWindow] = None) -> dict:
     """Row-parallel constraint evaluation on the witness's device; every
-    entry must be all-True."""
+    entry must be all-True.  `window` places a block of the block axis in
+    its run (`parallel/auto.py`); None is the whole run."""
     B = config.max_blocks
     dev = w.block_execute.device
     res = {}
@@ -289,7 +293,8 @@ def eval_constraints(w: KeccakRoundWitness, config: KeccakRoundFunctionConfig) -
 
     # (3) block byte stream matches memory reads + padding
     abi = abi_from_key(w.calls.key)
-    blk_off = pc.offset_within_group(w.block_is_first)
+    blk_off = pc.offset_within_group(
+        w.block_is_first, *((window.row0, window.flag_carry) if window else ()))
     byte_pos = blk_off[:, None] * RATE + torch.arange(RATE, device=dev)[None, :]  # (B, 136)
     call_off = abi["input_memory_byte_offset"][w.block_call]
     call_len = abi["input_memory_byte_length"][w.block_call]
@@ -331,6 +336,18 @@ def eval_constraints(w: KeccakRoundWitness, config: KeccakRoundFunctionConfig) -
 
 
 all_ok = pc.all_ok
+
+# row-sharded over the block axis: a block reads the previous block's output;
+# the call, read, write and memory-queue fields stay whole on every member
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 0),
+    rows=frozenset({"block_execute", "block_call", "block_is_first", "block_is_last",
+                    "block_bytes", "state_lo", "state_hi", "out_lo", "out_hi"}),
+    whole=frozenset({"call_chain", "call_is_keccak_precompile", "read_addressing",
+                     "write_value_is_digest", "write_addressing", "mem_chain"}),
+    takes_window=True,
+    carry_flag="block_is_first",
+)
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.
 generate_witness_jit = generate_witness

@@ -48,6 +48,7 @@ from ..runtime import native
 from ..utils import challenges as chal
 from ..utils import protocol
 from ..utils.device import resolve_device
+from ..utils.shard_plan import ShardPlan
 from .demux_log_queue import pad_log_queries
 
 NUM_REPETITIONS = chal.DEFAULT_NUM_REPETITIONS
@@ -278,6 +279,16 @@ def eval_constraints(w: LogSorterWitness, config: LogSorterConfig) -> dict:
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# row-sharded: a row reads the previous row, the result queue one entry
+# more; the challenges come from the run's queue tails
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 1),
+    replicated=frozenset({"challenges"}),
+    tails=frozenset({"chain_unsorted", "chain_sorted"}),
+    last=frozenset({"challenges", "grand_product_final"}),
+)
 
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.

@@ -55,11 +55,14 @@ def executed(count: int, n: int, device) -> torch.Tensor:
     return torch.arange(count, device=device) < n
 
 
-def offset_within_group(first: torch.Tensor) -> torch.Tensor:
+def offset_within_group(first: torch.Tensor, row0: int = 0, carry: int = 0) -> torch.Tensor:
     """row index minus the index of the last row at or before it where
-    `first` holds (0 where none did): a row's offset inside its group."""
-    idx = torch.arange(first.shape[0], device=first.device)
-    return idx - torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), dim=0).values
+    `first` holds (0 where none did): a row's offset inside its group.
+    For a window of a longer run (`utils.shard_plan.RowWindow`), row j is
+    run row row0 + j and `carry` is the last run row before the window where
+    `first` holds."""
+    idx = torch.arange(row0, row0 + first.shape[0], device=first.device)
+    return idx - torch.cummax(torch.where(first, idx, torch.full_like(idx, carry)), dim=0).values
 
 
 def group_starts(group: torch.Tensor) -> torch.Tensor:

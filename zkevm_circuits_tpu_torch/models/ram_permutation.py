@@ -43,6 +43,7 @@ from ..runtime import native
 from ..utils import challenges as chal
 from ..utils import protocol
 from ..utils.device import resolve_device
+from ..utils.shard_plan import RowWindow, ShardPlan
 
 NUM_REPETITIONS = chal.DEFAULT_NUM_REPETITIONS
 
@@ -238,8 +239,11 @@ def _fs_challenges(w: RamPermutationWitness) -> torch.Tensor:
     )
 
 
-def eval_constraints(w: RamPermutationWitness, config: RamPermutationConfig) -> dict:
-    """Row-parallel constraint evaluation; every entry must be all-True."""
+def eval_constraints(w: RamPermutationWitness, config: RamPermutationConfig,
+                     window: Optional[RowWindow] = None) -> dict:
+    """Row-parallel constraint evaluation; every entry must be all-True.
+    `window` places a block of rows in its run (`parallel/auto.py`); None is
+    the whole run."""
     dev = w.execute.device
     total = w.execute.shape[0]
     s = w.sorted
@@ -291,7 +295,8 @@ def eval_constraints(w: RamPermutationWitness, config: RamPermutationConfig) -> 
     # the same keys, so only the counter's final value is held, below
 
     # (7) completion: queues drained => lhs == rhs, counter == snapshot
-    completed = torch.full((), total >= w.n, dtype=torch.bool, device=dev)
+    run_rows = window.total if window else total
+    completed = torch.full((), run_rows >= w.n, dtype=torch.bool, device=dev)
     final_eq = gf.equal(w.lhs[total - 1], w.rhs[total - 1]).all()
     nondet_final_ok = w.nondet_count[total - 1] == w.snapshot_length
 
@@ -313,6 +318,25 @@ def eval_constraints(w: RamPermutationWitness, config: RamPermutationConfig) -> 
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+def _rows_of_a_state_a_row(config: RamPermutationConfig, rows: int) -> RamPermutationConfig:
+    if config.chain_stride:
+        raise NotImplementedError("a strided chain (chain_stride) cannot be row-sharded: "
+                                  "its states do not lie a row apart")
+    return config
+
+
+# row-sharded: a row reads the previous row (products, order) and the next
+# chain state; the challenges are drawn from the run's queue tails
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 1),
+    replicated=frozenset({"challenges"}),
+    tails=frozenset({"chain_unsorted", "chain_sorted"}),
+    last=frozenset({"challenges", "grand_product_final", "nondet_writes_final"}),
+    takes_window=True,
+    window_config=_rows_of_a_state_a_row,
+)
 
 
 # PyTorch runs eagerly: the counterpart of the JAX package's jitted name.

@@ -34,6 +34,7 @@ the step loop (`backend="device"`).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ from ..ops import gf, queues
 from ..ops.queues import QueueState
 from ..utils import challenges as chal
 from ..utils import protocol
+from ..utils.shard_plan import RowWindow, ShardPlan
 from .demux_log_queue import pad_log_queries
 
 NUM_REPETITIONS = chal.DEFAULT_NUM_REPETITIONS
@@ -340,13 +342,17 @@ def _fields_equal(a: LogQueries, b: LogQueries, rows: int) -> torch.Tensor:
     return ok
 
 
-def eval_constraints(w: StorageValidityWitness, config: StorageValidityConfig) -> dict:
-    """Row-parallel constraint evaluation; every entry must be all-True."""
+def eval_constraints(w: StorageValidityWitness, config: StorageValidityConfig,
+                     window: Optional[RowWindow] = None) -> dict:
+    """Row-parallel constraint evaluation; every entry must be all-True.
+    `window` places a block of rows in its run (`parallel/auto.py`); None is
+    the whole run."""
     total = w.execute.shape[0]
     dev = w.execute.device
     s = w.sorted
     true = torch.ones((), dtype=torch.bool, device=dev)
-    cycle_idx = torch.arange(total, device=dev)
+    row0 = window.row0 if window else 0
+    cycle_idx = torch.arange(row0, row0 + total, device=dev)
 
     enc_u_raw = encode_log_queries(w.unsorted)
     enc_u_ok = gf.equal(extend_encoding_with_timestamp(enc_u_raw, cycle_idx),
@@ -417,6 +423,17 @@ def eval_constraints(w: StorageValidityWitness, config: StorageValidityConfig) -
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# row-sharded: a row reads the previous row and its cell state after it; the
+# unsorted encodings carry the run row; the challenges come from the run's tails
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 1),
+    replicated=frozenset({"challenges"}),
+    tails=frozenset({"chain_unsorted", "chain_sorted"}),
+    last=frozenset({"challenges", "grand_product_final"}),
+    takes_window=True,
+)
 
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.

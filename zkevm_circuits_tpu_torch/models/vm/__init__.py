@@ -4,8 +4,8 @@
 `native_sim.py` the same oracle through the native C++ cycle loop,
 `circuit.py` re-derives every cycle transition row-parallel on the device,
 `compact.py` slices a long run into `limit`-cycle ClosedFormInput instances,
-`state.py` holds the host-side context records and their encoding.  The JAX
-package's `vm_eval_instances_sharded` (a device mesh) is not ported yet.
+`state.py` holds the host-side context records and their encoding;
+`compact.vm_eval_instances_sharded` evaluates the instances over a mesh.
 """
 
 from .state import (  # noqa: F401
@@ -24,6 +24,7 @@ from .circuit import (  # noqa: F401
 from .compact import (  # noqa: F401
     boot_and_exit_residuals,
     encode_local_state,
+    vm_eval_instances_sharded,
     vm_instance_compact_forms,
     vm_instance_windows,
 )

@@ -40,6 +40,7 @@ from ...isa import opcodes as isa
 from ...isa import system_params as sp
 from ...ops import gf, nonnative as nn, poseidon2
 from ...utils.device import resolve_device
+from ...utils.shard_plan import ShardPlan
 
 M32 = 0xFFFFFFFF
 MASK48 = (1 << 48) - 1
@@ -1426,6 +1427,20 @@ def _eval_continuity(w: dict, c: dict) -> dict:
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# per-block constants, classified by NAME: a constant column's shape can
+# coincide with total or total + 1 at small cycle counts (default_aa_code_hash
+# is (8,) when total = 8) and must never be cut with row indices
+BLOCK_CONSTANT_KEYS = frozenset({"block_rollback_tail", "default_aa_code_hash",
+                                 "zkporter_available"})
+
+# row-sharded: a cycle reads its state before and after (the state columns'
+# extra entry), nothing of other cycles; the limit is the window's cycles
+eval_constraints.shard_plan = ShardPlan(
+    replicated=BLOCK_CONSTANT_KEYS,
+    window_config=lambda limit, rows: rows,
+)
 
 
 # PyTorch runs eagerly: the counterpart of the JAX package's jitted name.

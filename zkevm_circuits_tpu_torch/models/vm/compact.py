@@ -20,9 +20,9 @@ one: on the card the small-batch kernel).  Exit invariant (ref
 `mod.rs:147-160`): at the final boundary the callstack is empty and pc == 0.
 
 `dw` is the dict of `circuit.prepare_device_witness`: u32 columns as int64,
-flags as bool, field columns as int64 field elements.  The JAX package's
-`vm_eval_instances_sharded` needs a device mesh and waits for the port's
-multi-device layer.
+flags as bool, field columns as int64 field elements.
+`vm_eval_instances_sharded` evaluates the instances over the "inst" axis of
+a mesh (`parallel/mesh.py`), one block of instances a member.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from ...isa import system_params as sp
 from ...ops import gf, poseidon2
 from ...utils import protocol
-from .circuit import _enc32
+from .circuit import BLOCK_CONSTANT_KEYS, _enc32
 
 # (key, kind) in canonical encoding order.  kind: "u32" scalar column,
 # "bool", "vec<k>" u32 vector column, "gf<k>" field lanes column.
@@ -261,10 +261,6 @@ def vm_instance_compact_forms(dw: dict, limit: int):
 # Per-instance windows (what a per-instance evaluation takes)
 # ---------------------------------------------------------------------------
 
-# per-block constants, classified by NAME: a constant column's shape can
-# coincide with total or total + 1 at small cycle counts (default_aa_code_hash
-# is (8,) when total = 8) and must never be windowed with row indices
-_CONST_KEYS = frozenset({"block_rollback_tail", "default_aa_code_hash", "zkporter_available"})
 
 
 def vm_instance_windows(dw: dict, limit: int):
@@ -289,7 +285,7 @@ def vm_instance_windows(dw: dict, limit: int):
     windows, axes = {}, {}
     for k, v in dw.items():
         lead = int(v.shape[0]) if v.dim() else -1
-        if k in _CONST_KEYS:
+        if k in BLOCK_CONSTANT_KEYS:
             windows[k], axes[k] = v, None
         elif lead == total + 1:
             windows[k], axes[k] = v[state_idx], 0
@@ -298,3 +294,29 @@ def vm_instance_windows(dw: dict, limit: int):
         else:
             windows[k], axes[k] = v, None
     return windows, axes, n
+
+
+def vm_eval_instances_sharded(dw: dict, limit: int, mesh, axis: str = "inst") -> dict:
+    """Evaluate the VM circuit once per ClosedFormInput instance, member i
+    of `axis` taking the block of instances that mesh slot i of the JAX
+    package holds (the role of one prover machine per circuit instance).
+
+    The circuit body is `eval_constraints` unchanged, over each instance's
+    window (transition checks never cross a window edge by construction);
+    the residuals are all-gathered along `axis`, so every member returns
+    each entry with a leading (n_instances,) axis."""
+    from ...parallel import mesh as meshlib
+    from .circuit import eval_constraints
+
+    windows, axes, n = vm_instance_windows(dw, limit)
+    d = mesh.size(axis)
+    if n % d:
+        raise ValueError(f"{n} instances do not split over {d} members of {axis!r}")
+    per = n // d
+    first = mesh.index(axis) * per
+    mine = [eval_constraints({k: v[i] if axes[k] == 0 else v for k, v in windows.items()},
+                             limit)
+            for i in range(first, first + per)]
+    return {k: meshlib.all_gather(torch.stack([r[k] for r in mine]), mesh, axis)
+            .reshape((n,) + tuple(mine[0][k].shape))
+            for k in mine[0]}

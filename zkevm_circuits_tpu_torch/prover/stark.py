@@ -342,7 +342,8 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
           public: Optional[torch.Tensor] = None,
           build_phase2: Optional[Callable] = None,
           fixed_cols: Optional[torch.Tensor] = None,
-          phase1_tree: Optional[dict] = None) -> StarkProof:
+          phase1_tree: Optional[dict] = None,
+          commit_fn: Optional[Callable] = None) -> StarkProof:
     """Prove that the (num_cols, n) trace satisfies `air` with `public`.
 
     `build_phase2(cols, ch_ints) -> (num_phase2_cols, n)` builds the
@@ -351,7 +352,9 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
     data (required iff the AIR has it).  `phase1_tree` is the caller's own
     `_commit_columns(trace, params)` when it already made it (a public that
     depends on the challenges needs the phase-1 cap first); the proof is the
-    same either way."""
+    same either way.  `commit_fn(cols, params)` replaces `_commit_columns`
+    for the column groups (`parallel/prover.py:make_sharded_commit` gives
+    the same tree dict, so the proof is the same bytes)."""
     n = 1 << params.log_n
     if tuple(trace.shape) != (air.num_cols, n):
         raise ValueError(f"trace must be {(air.num_cols, n)}, got {tuple(trace.shape)}")
@@ -362,16 +365,17 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
     N = n * blowup
     log_N = params.log_n + params.log_blowup
 
+    commit = commit_fn or _commit_columns
     trees = []
     fixed_cap = None
     groups = [trace]  # the column groups in the order of the rows
     if air.num_fixed_cols:
         if fixed_cols is None or tuple(fixed_cols.shape) != (air.num_fixed_cols, n):
             raise ValueError(f"the AIR takes fixed columns of shape {(air.num_fixed_cols, n)}")
-        trees.append(_commit_columns(fixed_cols, params))
+        trees.append(commit(fixed_cols, params))
         fixed_cap = trees[0]["cap"]
         groups.insert(0, fixed_cols)
-    trees.append(phase1_tree if phase1_tree is not None else _commit_columns(trace, params))
+    trees.append(phase1_tree if phase1_tree is not None else commit(trace, params))
     ch, tr = challenges_from_cap(trees[-1]["cap"], air, fixed_cap)
     _absorb_public(tr, public, air)
     if air.num_phase2_cols:
@@ -381,7 +385,7 @@ def prove(trace: torch.Tensor, air: AirSpec, params: StarkParams,
         if tuple(t2.shape) != (air.num_phase2_cols, n):
             raise ValueError(f"build_phase2 gave {tuple(t2.shape)}, "
                              f"not {(air.num_phase2_cols, n)}")
-        trees.append(_commit_columns(t2, params))
+        trees.append(commit(t2, params))
         tr.absorb(trees[-1]["cap"])
         groups.append(t2)
 
