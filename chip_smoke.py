@@ -125,10 +125,10 @@ Phases, each printed on its own line:
  20. circuit STARKs, full width, through the verdict writers of
      `runtime/block.py` on the data of phases 14, 17 and 18: the demux proof
      over the log path's rows (type 4), a keccak proof of the L1 stream (13),
-     per blob the Horner proof and three keccak chains (255), the ecrecover
-     ladders of every call (7), a sha256 chain for each of the first 3
-     unique unpacked codes (3; cut 6), the first 4 calls of the sha256 and
-     keccak precompiles (6, 5; cuts 2 and 7), the first 2^13 blake2s compressions
+     the first blob's Horner proof and three keccak chains (255; cut 9),
+     the ecrecover ladders of every call (7), a sha256 chain for each of the first 3
+     unique unpacked codes (3; cut 6), the first 2 calls of the sha256 and
+     keccak precompiles (6, 5; cuts 2, 7 and 8), the first 2^13 blake2s compressions
      of storage application (10); each proof made and verified on the card
      once (cut 5): rows x columns, prove and verify seconds, peak device
      memory,
@@ -179,7 +179,14 @@ Phases, each printed on its own line:
      and the proof made through it verified; each of its phases prints a
      line from rank 0 (seconds, world size, rank 0's launches, the card);
      rank 0's sharded-commit proof must equal phase 4's proof as nested
-     ints.
+     ints.  Its phase 3c runs the other eight circuits through
+     `parallel.auto.eval_sharded` by their shard plans (demux at 2^15 rows,
+     the decommit sorter at 2^12, the linear hasher over 2^12 queries, one
+     4,096-element blob, storage application over 4,096 stage rows, sha256
+     over 8,192 rounds, the code unpacker over 4,096, ecrecover over 32
+     calls), each equal key for key to the unsharded evaluation, all true,
+     and a change at the second member's first row caught: a line a
+     circuit (seconds, rows, rank 0's launches).
 
 Cuts of depth made so that phases 23-25 fit the script's time (on an H100
 at 700 W the script took 596-698 s without them, 713 s with them and no
@@ -191,9 +198,12 @@ path's run only, not also over the bench loop (the same 2^17 x 1,922
 shape); (5) phase 20 proves demux and the L1 keccak once, not twice (first
 and steady); (6) phase 20 proves the sha256 chains of the first 3 unique
 unpacked codes, not all 12 (one shape, 2^15 x 819); (7) phase 20 proves the
-first 4 calls of types 5 and 6, not 8.  The script took 687 and 717 s with
-cuts 1-4 (two runs), 647 and 716 s with cuts 1-5 and 6 codes (two runs on
-the same tree).  Every path is still driven.
+first 4 calls of types 5 and 6, not 8; (8) and (9) for phase 25's phase
+3c, phase 20 proves the first 2 calls of types 5 and 6, not 4, and the
+first blob's Horner proof and keccak chains, not both blobs'.  The script
+took 687 and 717 s with cuts 1-4 (two runs), 647 and 716 s with cuts 1-5
+and 6 codes (two runs on the same tree), 632.8 s with cuts 1-7.  Every
+path is still driven.
 
 Entry points are called without a device here: they must pick the card.
 Then one JSON line with the three kernels' records (each one's time against
@@ -262,7 +272,8 @@ PROBE_SLOT = 5
 CIRCUIT_REF_BLOB = 8
 CIRCUIT_REF_QUERIES = 4
 CPU_REF_THREADS = 2  # the CPU references' torch threads, beside the card phases
-PRECOMPILE_PROOF_CALLS = 4  # a proof a call (cuts 2 and 7)
+PRECOMPILE_PROOF_CALLS = 2  # a proof a call (cuts 2, 7 and 8)
+BLOB_PROOFS = 1  # of phase 18's two blobs (cut 9)
 UNPACKER_PROOF_CODES = 3  # of 12 unique codes, one shape (cut 6)
 # The bench loop's rounds (bench.py runs 0xFFFF): four cycles a round, so it
 # returns at cycle 65,534 and its last rows are the skip rows of a finished
@@ -2392,14 +2403,14 @@ def _summary(name, recs, card):
 def circuit_starks_full(dev, card, log_in, mem_in, blobs):
     """Phase (e): the block's circuit STARKs at full width, through the
     verdict writers of `runtime/block.py`, on the data of phases (a), (c)
-    and (d): demux over the log path's rows, keccak over the L1 stream, per
-    blob the Horner proof and three keccak chains, the ecrecover ladders of
-    every call, a sha256 chain per unique unpacked code, the first calls of
-    the sha256 and keccak precompiles, the first 2^13 blake2s compressions of
-    storage application.  Each proof is made and verified on the card once
-    (cut 5: the demux and L1 reruns dropped; the steady times are the later
-    proofs of one shape: blob 1, codes 1-2, calls 1-3).  Then a negative
-    probe on each AIR."""
+    and (d): demux over the log path's rows, keccak over the L1 stream, the
+    first blob's Horner proof and three keccak chains (cut 9), the
+    ecrecover ladders of every call, a sha256 chain per unique unpacked
+    code, the first calls of the sha256 and keccak precompiles, the first
+    2^13 blake2s compressions of storage application.  Each proof is made
+    and verified on the card once (cut 5: the demux and L1 reruns dropped;
+    the steady times are the later proofs of one shape: codes 1-2, call 1).
+    Then a negative probe on each AIR."""
     from zkevm_circuits_tpu_torch.isa import system_params as sp
     from zkevm_circuits_tpu_torch.models import storage_application as sa
     from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import KERNEL
@@ -2418,7 +2429,7 @@ def circuit_starks_full(dev, card, log_in, mem_in, blobs):
     write("demux", lambda lg: block.demux_verdict(log_in["log_rows"], None, verdicts, log=lg))
     write("l1", lambda lg: block.l1_verdict(log_in["hw"], log_in["l1_hash"], None, verdicts,
                                             log=lg))
-    write("blobs", lambda lg: block.blob_verdict(blobs, None, verdicts, log=lg))
+    write("blobs", lambda lg: block.blob_verdict(blobs[:BLOB_PROOFS], None, verdicts, log=lg))
     write("ecrecover", lambda lg: block.ecrecover_verdict(mem_in["ew"], None, verdicts, log=lg))
     write("unpacker", lambda lg: block.code_unpacker_verdict(mem_in["uw"], None, verdicts,
                                                              limit=UNPACKER_PROOF_CODES, log=lg))

@@ -6,18 +6,26 @@ which take minutes of XLA:CPU compiles each (`slow`):
 Gloo worlds of 2 and 4 ranks (`torch_parallel_ranks`) against sub-meshes of
 the JAX package's 8-device virtual mesh, on the same inputs:
   * `sharded_commit_columns`: cap, leaves and levels as u64;
-  * `auto.eval_sharded` on the five circuits of tests/test_auto_sharding.py;
+  * `auto.eval_sharded` on the five circuits of tests/test_auto_sharding.py
+    and on the eight of `parallel/cases.py`, honest and tampered, and on
+    `torch_parallel_ranks.EDGE_CASES` (the JAX side evaluates the port's
+    seeded witness, turned into the JAX package's witness), the residuals
+    as exact bools, key for key;
   * `vm_eval_instances_sharded` on that file's program.
 The tier-1 files (test_torch_parallel_{sharded,commit,auto}.py) hold the
 same results to the JAX sharded ram check and to the port's single-device
 functions.
 """
 
+import dataclasses
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from zkevm_circuits_tpu.base_structures.decommit_query import DecommitQueries as JDecommitQueries
 from zkevm_circuits_tpu.base_structures.log_query import LogQueries as JLogQueries
 from zkevm_circuits_tpu.base_structures.memory_query import MemoryQueries as JMemoryQueries
 from zkevm_circuits_tpu.models import keccak256_round_function as jkc
@@ -31,7 +39,11 @@ from zkevm_circuits_tpu.parallel.prover import sharded_commit_columns as jax_com
 from zkevm_circuits_tpu.prover import stark as jstark
 
 import torch_parallel_ranks as ranks
+from torch_log_helpers import FIELDS
+from torch_precompile_helpers import to_jax
 from zkevm_circuits_tpu_torch.ops import gf
+from zkevm_circuits_tpu_torch.parallel import cases
+from zkevm_circuits_tpu_torch.utils.convert import witness_to_numpy
 
 pytestmark = pytest.mark.slow
 
@@ -66,6 +78,39 @@ def _jax_auto_case(name):
     prog = ranks.vm_program("mul")
     dw = jvm.prepare_device_witness(jvm.EraVM(jvm.assemble_code_words(prog), 16).run())
     return jvm.eval_constraints, dw, 16, 16
+
+
+# the eight circuits of `parallel/cases.py`: name -> (JAX witness class,
+# config class, the witness's field-element fields, its query batches)
+_PRECOMPILE = dict(calls=JLogQueries, reads=JMemoryQueries, writes=JMemoryQueries)
+_CIRCUITS = dict(
+    demux_log_queue=("DemuxWitness", "DemuxConfig", FIELDS["demux"],
+                     dict(queries=JLogQueries)),
+    sort_decommittment_requests=(
+        "DecommitSorterWitness", "DecommitSorterConfig", FIELDS["decommit"],
+        dict(unsorted=JDecommitQueries, sorted=JDecommitQueries, result_items=JDecommitQueries)),
+    linear_hasher=("LinearHasherWitness", "LinearHasherConfig", FIELDS["hasher"],
+                   dict(queries=JLogQueries)),
+    eip_4844=("EIP4844Witness", "EIP4844Config", (), {}),
+    storage_application=("StorageApplicationWitness", "StorageApplicationConfig",
+                         ("query_chain",), dict(queries=JLogQueries)),
+    sha256_round_function=("Sha256RoundWitness", "Sha256RoundFunctionConfig",
+                           ("call_chain", "mem_chain", "mem_order_encodings"), _PRECOMPILE),
+    code_unpacker_sha256=("CodeUnpackerWitness", "CodeUnpackerConfig",
+                          ("request_chain", "mem_chain"),
+                          dict(requests=JDecommitQueries, writes=JMemoryQueries)),
+    ecrecover=("EcrecoverWitness", "EcrecoverConfig", ("call_chain", "mem_chain"), _PRECOMPILE),
+)
+
+
+def _jax_circuit(name, c, w):
+    """(eval_fn, witness, config, rows) of the JAX package on the port's
+    witness `w` of circuit `name`, for the case `c` of `parallel/cases.py`."""
+    witness_cls, config_cls, fields, queries = _CIRCUITS[name]
+    module = importlib.import_module(f"zkevm_circuits_tpu.models.{name}")
+    jw = to_jax(getattr(module, witness_cls), witness_to_numpy(w, fields), fields, queries)
+    jcfg = getattr(module, config_cls)(**dataclasses.asdict(c.config))
+    return module.eval_constraints, jw, jcfg, c.rows
 
 
 def _equal(got, want):
@@ -104,6 +149,41 @@ def test_eval_sharded_equals_jax(worlds, world, name):
     want = jauto.eval_sharded(eval_fn, w, cfg, _jmesh(world), rows)
     for out in worlds[1][world]:
         _equal(out[name]["honest"], want)
+
+
+@pytest.fixture(scope="module")
+def circuit_worlds(tmp_path_factory):
+    worlds = ranks.start_worlds(ranks.circuits_rank, (), tmp_path_factory.mktemp("circuits"))
+    return {d: f.result() for d, f in worlds.items()}
+
+
+def _jax_equal(outs, name, which, want):
+    for out in outs:
+        got = out[name][which]
+        _equal(got, want)
+        for key in want:
+            assert got[key].dtype == np.asarray(want[key]).dtype == np.bool_, key
+
+
+@pytest.mark.parametrize("name", ranks.CIRCUIT_CASES)
+@pytest.mark.parametrize("world", ranks.WORLDS)
+def test_circuit_eval_sharded_equals_jax(circuit_worlds, world, name):
+    c = ranks.circuit_case(name)
+    for which, w in (("honest", c.witness),
+                     ("tampered", cases.tamper(name, c.witness, c.rows // world))):
+        eval_fn, jw, cfg, rows = _jax_circuit(name, c, w)
+        want = jauto.eval_sharded(eval_fn, jw, cfg, _jmesh(world), rows)
+        _jax_equal(circuit_worlds[world], name, which, want)
+
+
+@pytest.mark.parametrize("world,name", ranks.EDGE_RUNS)
+def test_circuit_eval_sharded_equals_jax_at_a_plan_edge(circuit_worlds, world, name):
+    c, change = ranks.edge_case(name)
+    circuit = ranks.EDGE_CASES[name].circuit
+    for which, w in (("honest", c.witness), ("tampered", change(c.witness, -(-c.rows // world)))):
+        eval_fn, jw, cfg, rows = _jax_circuit(circuit, c, w)
+        want = jauto.eval_sharded(eval_fn, jw, cfg, _jmesh(world), rows)
+        _jax_equal(circuit_worlds[world], name, which, want)
 
 
 @pytest.mark.parametrize("world", ranks.WORLDS)

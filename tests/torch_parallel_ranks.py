@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -27,7 +28,7 @@ from zkevm_circuits_tpu_torch.models import ram_permutation as ram
 from zkevm_circuits_tpu_torch.models import storage_validity as sv
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.ops import gf
-from zkevm_circuits_tpu_torch.parallel import auto, mesh as meshlib
+from zkevm_circuits_tpu_torch.parallel import auto, cases, mesh as meshlib
 from zkevm_circuits_tpu_torch.parallel.prover import make_sharded_commit, sharded_commit_columns
 from zkevm_circuits_tpu_torch.parallel.sharded import sharded_eval_constraints
 from zkevm_circuits_tpu_torch.prover import pipeline, stark
@@ -285,6 +286,103 @@ def auto_rank(rank, world, dev):
         tampered = _np(auto.eval_sharded(eval_fn, tamper_auto(name, w, rows // world), cfg,
                                          mesh, rows))
         out[name] = dict(honest=honest, tampered=tampered, window=seen[0])
+    return out
+
+
+# the eight circuits of `parallel/cases.py`, beside AUTO_CIRCUITS:
+# name -> rows (ecrecover: calls, 512 steps each), each made from CASE_SEED
+CIRCUIT_ROWS = dict(demux_log_queue=16, sort_decommittment_requests=16, linear_hasher=16,
+                    eip_4844=16, storage_application=16, sha256_round_function=16,
+                    code_unpacker_sha256=16, ecrecover=2)
+CIRCUIT_CASES = tuple(CIRCUIT_ROWS)
+CASE_SEED = 11
+
+
+def circuit_case(name: str):
+    return cases.case(name, CIRCUIT_ROWS[name], CASE_SEED, CPU)
+
+
+def _last_step_before(w, row):
+    """w with the accumulator after step row - 1 changed."""
+    steps = dict(w.steps, acc_nx=w.steps["acc_nx"].clone())
+    steps["acc_nx"][row - 1, 0] ^= 1
+    return dataclasses.replace(w, steps=steps)
+
+
+class Edge(NamedTuple):
+    """a case at an edge of a plan: `rows` of `circuit`, run in `worlds`,
+    and `change(w, row)`, given the first row of the second member, which
+    residual `fails` catches."""
+    circuit: str
+    rows: int
+    change: Callable
+    fails: str
+    worlds: tuple
+
+
+EDGE_CASES = dict(
+    # 3 calls (1,536 steps) over 4 members: blocks of 384 steps, so the
+    # second member starts in the middle of a ladder, where its
+    # `step_continuity` reads the previous step from the halo; the change
+    # is to that step, the first member's last
+    ecrecover_mid_ladder=Edge("ecrecover", 3, _last_step_before, "step_continuity", (4,)),
+    # an `n` past the run and a wrong digest: the digest is read at the
+    # run's last state, on one member, and fails there
+    linear_hasher_n_past_run=Edge(
+        "linear_hasher", 16, lambda w, row: dataclasses.replace(w, n=w.n + 1, digest=w.digest ^ 1),
+        "digest", WORLDS),
+)
+EDGE_RUNS = [(world, name) for name, edge in EDGE_CASES.items() for world in edge.worlds]
+
+
+def edge_case(name: str):
+    """(the case, its change) of EDGE_CASES[name]."""
+    edge = EDGE_CASES[name]
+    return cases.case(edge.circuit, edge.rows, CASE_SEED, CPU), edge.change
+
+
+def leaf_sizes(w) -> dict:
+    """{field path: leading size} of every tensor leaf of a witness."""
+    out = {}
+    for name, value in auto._fields(w):
+        if isinstance(value, torch.Tensor):
+            if value.dim():
+                out[name] = int(value.shape[0])
+        elif isinstance(value, dict) or dataclasses.is_dataclass(value):
+            out.update({f"{name}.{k}": v for k, v in leaf_sizes(value).items()})
+    return out
+
+
+def _recording_leaves(eval_fn, seen):
+    """eval_fn, recording the leading size of every leaf of its window."""
+    def wrapped(w, config, **kwargs):
+        seen.append(leaf_sizes(w))
+        return eval_fn(w, config, **kwargs)
+
+    wrapped.shard_plan = eval_fn.shard_plan
+    return wrapped
+
+
+def circuits_rank(rank, world, dev):
+    """`auto.eval_sharded` on each of the eight circuits, honest and with
+    one changed value at the first row of the second member, with the
+    window sizes each eval received; and on the EDGE_CASES of this world,
+    honest and changed."""
+    mesh = meshlib.make_mesh(n_rows=world, device=dev)
+    out = {}
+    for name in CIRCUIT_CASES:
+        c = circuit_case(name)
+        seen = []
+        honest = _np(auto.eval_sharded(_recording_leaves(c.eval_fn, seen), c.witness, c.config,
+                                       mesh, c.rows))
+        tampered = _np(auto.eval_sharded(c.eval_fn, cases.tamper(name, c.witness, c.rows // world),
+                                         c.config, mesh, c.rows))
+        out[name] = dict(honest=honest, tampered=tampered, window=seen[0])
+    for name in (name for d, name in EDGE_RUNS if d == world):
+        c, change = edge_case(name)
+        out[name] = {which: _np(auto.eval_sharded(c.eval_fn, w, c.config, mesh, c.rows))
+                     for which, w in (("honest", c.witness),
+                                      ("tampered", change(c.witness, -(-c.rows // world))))}
     return out
 
 

@@ -62,6 +62,10 @@ def entry(device=None):
 
 # the dry run's deadline: its ranks are stopped, and it raises, after this
 DRYRUN_DEADLINE_S = 900.0
+# phase 3c: circuit j's witness is made from seed CIRCUITS_SEED + j, and each
+# evaluation, sharded and unsharded, is timed over CIRCUIT_REPS calls
+CIRCUITS_SEED = 0x5EED
+CIRCUIT_REPS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +80,24 @@ class DryrunSizes:
     log2_prove_rows: int = 16   # the sharded-commit proof of the grand product
     chain_stride: int = 512
     bench_rounds: int = 16383   # the bench loop's rounds: it returns at cycle 65,534
+    # phase 3c: the eight circuits of `parallel/cases.py` at the block cells' rows
+    demux_rows: int = 1 << 15
+    decommit_rows: int = 1 << 12
+    hasher_queries: int = 1 << 12
+    blob_elements: int = 4096
+    storage_rows: int = 4096
+    sha256_rounds: int = 8192
+    unpacker_rounds: int = 4096
+    ecrecover_calls: int = 32   # 16,384 steps; the memory thread's 206 cut for host time
+
+    def circuit_rows(self) -> dict:
+        """{circuit of `parallel/cases.py`: its rows (ecrecover: calls)}"""
+        return dict(demux_log_queue=self.demux_rows,
+                    sort_decommittment_requests=self.decommit_rows,
+                    linear_hasher=self.hasher_queries, eip_4844=self.blob_elements,
+                    storage_application=self.storage_rows,
+                    sha256_round_function=self.sha256_rounds,
+                    code_unpacker_sha256=self.unpacker_rounds, ecrecover=self.ecrecover_calls)
 
 
 def ram_tapes(n_rows: int, seed: int = 0x5EED):
@@ -166,8 +188,59 @@ def _timed(fn, device, reps: int = 3):
     return out, seconds
 
 
+def _same_residuals(got: dict, want: dict, what: str) -> None:
+    """got == want key for key: the same keys in the same order, shapes,
+    dtypes and values; raises otherwise."""
+    if list(got) != list(want):
+        raise RuntimeError(f"{what}: keys {list(got)} != {list(want)}")
+    for key, value in want.items():
+        other = got[key]
+        if other.shape != value.shape or other.dtype != value.dtype or not torch.equal(other,
+                                                                                        value):
+            raise RuntimeError(f"{what}: residual {key} differs from the unsharded one")
+
+
+def _circuits_sharded(phases: _Phases, row_mesh, device: torch.device, sizes: DryrunSizes):
+    """Phase 3c: each circuit of `parallel/cases.py` through
+    `auto.eval_sharded` over every member of "rows", honest (all true) and
+    with one value changed at the first row of the second member (caught),
+    each held key for key against the unsharded `eval_constraints` on this
+    rank."""
+    from .parallel import auto, cases
+
+    d = row_mesh.size("rows")
+    for j, (name, rows) in enumerate(sizes.circuit_rows().items()):
+        t0 = time.perf_counter()
+        c = cases.case(name, rows, CIRCUITS_SEED + j, device)
+        witness_s = time.perf_counter() - t0
+        res, sharded_s = _timed(
+            lambda: auto.eval_sharded(c.eval_fn, c.witness, c.config, row_mesh, c.rows), device,
+            CIRCUIT_REPS)
+        single, single_s = _timed(lambda: c.eval_fn(c.witness, c.config), device, CIRCUIT_REPS)
+        _same_residuals(res, single, f"{name} sharded")
+        bad = [key for key, v in res.items() if not bool(v.all())]
+        if bad:
+            raise RuntimeError(f"sharded {name}: {bad} false")
+        row = -(-c.rows // max(d, 2))
+        tampered = cases.tamper(name, c.witness, row)
+        res = auto.eval_sharded(c.eval_fn, tampered, c.config, row_mesh, c.rows)
+        _same_residuals(res, c.eval_fn(tampered, c.config), f"{name} tampered")
+        caught = [key for key, v in res.items() if not bool(v.all())]
+        if not caught:
+            raise RuntimeError(f"sharded {name}: a change at row {row} was not caught")
+        phases.done(f"3c.{name}", f"{name} through auto.eval_sharded at {c.rows} rows over {d} "
+                                  f"members of 'rows', {len(res)} residuals equal to the "
+                                  f"unsharded ones, all true; s of {len(sharded_s)} calls sharded "
+                                  + ", ".join(f"{x:.3f}" for x in sharded_s)
+                                  + ", unsharded " + ", ".join(f"{x:.3f}" for x in single_s)
+                                  + f"; witness {witness_s:.2f} s; a change at row {row} fails "
+                                  f"{caught}",
+                    rows=c.rows, sharded_s=sharded_s, single_s=single_s, witness_s=witness_s)
+        del c, res, tampered
+
+
 def _dryrun_rank(rank: int, world: int, device: torch.device, sizes: DryrunSizes) -> dict:
-    """The four phases on one rank of the world (see `dryrun_multichip`)."""
+    """The phases on one rank of the world (see `dryrun_multichip`)."""
     from .models import ram_permutation as ram
     from .parallel import auto, mesh as meshlib
     from .parallel.prover import make_sharded_commit, sharded_commit_columns
@@ -248,6 +321,9 @@ def _dryrun_rank(rank: int, world: int, device: torch.device, sizes: DryrunSizes
                 eval_s=inst_s)
     del dw, res
 
+    # 3c. the eight circuits of parallel/cases.py row-sharded by their plans
+    _circuits_sharded(phases, row_mesh, device, sizes)
+
     # 4. the sharded commit and the proof made through it
     n = 1 << sizes.log2_prove_rows
     pcfg = ram.RamPermutationConfig(limit=n, chain_stride=sizes.chain_stride)
@@ -312,7 +388,14 @@ def dryrun_multichip(n_devices: Optional[int] = None, device=None,
       2. the 8 instance compact forms, committed over "inst";
       3. main_vm through `auto.eval_sharded` at 2^14 cycles, a register
          tamper at a shard boundary caught; and through
-         `vm_eval_instances_sharded` at 2^16 cycles in 16 instances;
+         `vm_eval_instances_sharded` at 2^16 cycles in 16 instances; then
+         (3c) on a 1 x n mesh, the eight circuits of `parallel/cases.py`
+         through `auto.eval_sharded` at the block cells' rows (demux 2^15,
+         the decommit sorter 2^12, the linear hasher 2^12 queries, one blob
+         of 4,096 elements, storage application 4,096 stage rows, sha256
+         8,192 rounds, the code unpacker 4,096, ecrecover 32 calls), each
+         equal to the unsharded evaluation, all true, and a change at the
+         second member's first row caught;
       4. on a 1 x n mesh, the sharded commit of the grand-product trace of
          2^16 rows bit-identical to `_commit_columns`, and the proof made
          through it verified and equal to the single-device proof.

@@ -25,6 +25,7 @@ batched `sha256.compress`, on the witness's device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from ..base_structures.decommit_query import DecommitQueries, encode_decommit_qu
 from ..base_structures.memory_query import MemoryQueries, encode_memory_queries
 from ..ops import queues, sha256
 from ..utils.device import resolve_device
+from ..utils.shard_plan import RowWindow, ShardPlan, owned_rows, summed
 from . import precompile_common as pc
 from .sha256_round_function import _fsm_lanes, state_checks
 
@@ -183,9 +185,11 @@ def generate_witness(requests: list, code_store: dict, config: CodeUnpackerConfi
     )
 
 
-def eval_constraints(w: CodeUnpackerWitness, config: CodeUnpackerConfig) -> dict:
+def eval_constraints(w: CodeUnpackerWitness, config: CodeUnpackerConfig,
+                     window: Optional[RowWindow] = None) -> dict:
     """Row-parallel constraint evaluation on the witness's device; every
-    entry must be all-True."""
+    entry must be all-True.  `window` places a block of rounds in its run
+    (`parallel/auto.py`); None is the whole run."""
     N = config.max_rounds
     dev = w.round_execute.device
     res = {}
@@ -202,8 +206,11 @@ def eval_constraints(w: CodeUnpackerWitness, config: CodeUnpackerConfig) -> dict
 
     # rounds per request match (length+1)/2
     Q = w.request_execute.shape[0]
-    rounds_per_req = pc.scatter_add(Q, w.round_request, w.round_execute)
-    res["round_count"] = torch.where(w.request_execute, rounds_per_req == (length + 1) // 2, true_q)
+    rounds_per_req = pc.scatter_add(Q, w.round_request,
+                                    w.round_execute & owned_rows(window, N, dev))
+    res["round_count"] = summed(
+        rounds_per_req,
+        lambda s: torch.where(w.request_execute, (s & M32) == (length + 1) // 2, true_q), window)
 
     # sha256 block construction from code words
     be0, be1 = w.word0.flip(-1), w.word1.flip(-1)
@@ -231,7 +238,7 @@ def eval_constraints(w: CodeUnpackerWitness, config: CodeUnpackerConfig) -> dict
     # memory writes: correct page/index/ts, values = code words, word1 masked
     # on final rounds
     ridx = torch.arange(N, device=dev)
-    roff = pc.offset_within_group(pc.group_starts(w.round_request))
+    roff = pc.group_offsets(pc.group_starts(w.round_request), window)
     page = w.requests.page[w.round_request]
     ts = w.requests.timestamp[w.round_request]
     i0, i1 = 2 * ridx, 2 * ridx + 1
@@ -252,6 +259,24 @@ def eval_constraints(w: CodeUnpackerWitness, config: CodeUnpackerConfig) -> dict
 
 
 all_ok = pc.all_ok
+
+# row-sharded over the rounds (two memory writes a round, the memory chain
+# over them): a round reads the previous round's output; its offset in its
+# request carries the last request start before the block; the request
+# fields stay whole on every member, their residuals computed on each and
+# taken from the first; a request's round count is a sum over the members
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 0),
+    rows=frozenset({"round_execute", "round_request", "round_is_first", "round_is_last",
+                    "word0", "word1", "block_words", "state_before", "state_after", "writes",
+                    "write_execute", "mem_chain"}),
+    entries={"writes": 2, "write_execute": 2, "mem_chain": 2},
+    whole=frozenset({"request_chain", "versioned_hash"}),
+    sums=frozenset({"round_count"}),
+    takes_window=True,
+    carry_flag=lambda w: pc.group_starts(w.round_request),
+    window_config=lambda config, rows: dataclasses.replace(config, max_rounds=rows),
+)
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.
 generate_witness_jit = generate_witness

@@ -37,6 +37,7 @@ from ..isa.system_params import (
 from ..ops import gf, queues
 from ..ops.queues import QueueState
 from ..utils import protocol
+from ..utils.shard_plan import ShardPlan
 
 NUM_SEPARATE_QUEUES = 6
 QUEUE_NAMES = (
@@ -163,6 +164,11 @@ def eval_constraints(w: DemuxWitness, config: DemuxConfig) -> dict:
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# row-sharded: a row reads the previous row's output counts; the input and
+# output chains' after-states are the fields' extra entries
+eval_constraints.shard_plan = ShardPlan(halo=(1, 0))
 
 
 def output_queue_states(w: DemuxWitness) -> dict:

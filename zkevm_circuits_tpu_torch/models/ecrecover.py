@@ -44,6 +44,7 @@ instead of adding twice: the same values); its sponge chains go through
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from ..base_structures.memory_query import MemoryQueries, encode_memory_queries
 from ..isa.system_params import ECRECOVER_PRECOMPILE_FORMAL_ADDRESS, PRECOMPILE_AUX_BYTE
 from ..ops import keccak, nonnative as nn, queues, secp256k1 as ec
 from ..utils.device import resolve_device
+from ..utils.shard_plan import RowWindow, ShardPlan, owned_rows, summed
 from . import precompile_common as pc
 
 MEMORY_QUERIES_PER_CALL = 4
@@ -457,9 +459,11 @@ def _be_bytes(limbs16):
                         for i in range(31, -1, -1)], dim=-1)
 
 
-def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
+def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig,
+                     window: Optional[RowWindow] = None) -> dict:
     """Row-parallel constraint evaluation on the witness's device; every
-    entry must be all-True."""
+    entry must be all-True.  `window` places a block of ladder steps in its
+    run (`parallel/auto.py`); None is the whole run."""
     res = {}
     C = w.call_execute.shape[0]
     S = w.step_execute.shape[0]
@@ -562,17 +566,28 @@ def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
                | s_zero_mod_n | exc_t_zero | exc_nonres)
     ladder_on = ce & ~pre_exc
 
-    # acc1/acc2 infinity flags from the checked ladder's last steps
-    idx = torch.arange(S, device=dev)
-    calls = torch.arange(C, device=dev)
-    acc1_inf = st["acc_ninf"][calls * (2 * BITS) + (BITS - 1)] == 1
-    acc2_inf = st["acc_ninf"][calls * (2 * BITS) + (2 * BITS - 1)] == 1
+    # acc1/acc2 infinity flags from the checked ladder's last steps: each
+    # call's pair of acc_ninf values, summed over the run's own steps (the
+    # residuals that read them are sums over the members of a window)
+    row0 = window.row0 if window else 0
+    idx = torch.arange(row0, row0 + S, device=dev)  # run steps
+    step_call = idx // (2 * BITS)
+    in_pair = idx % (2 * BITS)
+    ends = (torch.stack([in_pair == BITS - 1, in_pair == 2 * BITS - 1], dim=-1)
+            & owned_rows(window, S, dev)[:, None])
+    flags = torch.where(ends, st["acc_ninf"][:, None], 0)
+    ladder_ends = torch.zeros((C, 2), dtype=torch.int64, device=dev).index_add_(0, step_call, flags)
+
+    def by_ends(residual):
+        return summed(ladder_ends, lambda s: residual(s[:, 0] == 1, s[:, 1] == 1), window)
+
     exc_inf_flag = sc["exc_inf"] == 1
     # infinity certificate: acc1 == -acc2 (both finite, x equal, y's sum to p)
-    inf_cert = (~acc1_inf & ~acc2_inf & (pt["acc1x"] == pt["acc2x"]).all(-1)
-                & nn.sides_equal([("lin", pt["acc1y"], 1), ("lin", pt["acc2y"], 1)],
-                                 [("const", _P)], (C,)))
-    res["exc_inf_cert"] = gate(ladder_on & exc_inf_flag, inf_cert)
+    acc_opposite = ((pt["acc1x"] == pt["acc2x"]).all(-1)
+                    & nn.sides_equal([("lin", pt["acc1y"], 1), ("lin", pt["acc2y"], 1)],
+                                     [("const", _P)], (C,)))
+    res["exc_inf_cert"] = by_ends(lambda acc1_inf, acc2_inf: gate(
+        ladder_on & exc_inf_flag, ~acc1_inf & ~acc2_inf & acc_opposite))
     res["exc_inf_domain"] = gate(~ladder_on, ~exc_inf_flag)
 
     valid = ladder_on & ~exc_inf_flag
@@ -592,7 +607,6 @@ def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
 
     # --- ladder steps -----------------------------------------------------
     sbatch = (S,)
-    step_call = idx // (2 * BITS)
     se = w.step_execute
     # step_execute is fully determined by the per-call ladder_on flag
     res["step_execute_binding"] = se == ladder_on[step_call]
@@ -631,7 +645,6 @@ def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
             & (acc_inf == prev(acc_ninf)))
     res["step_continuity"] = gate(not_first, cont)
     # ladder starts: first step of ladder1 has base = G; ladder2 base = R
-    in_pair = idx % (2 * BITS)
     is_l2_start = (pos_in_ladder == 0) & (in_pair == BITS)
     gx = _const(ec.GX, (S,), dev)
     gy = _const(ec.GY, (S,), dev)
@@ -656,17 +669,20 @@ def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
         & gate(se & last2 & ~acc_ninf, (st["acc_nx"] == pt["acc2x"][step_call]).all(-1)
                & (st["acc_ny"] == pt["acc2y"][step_call]).all(-1)))
     # acc2 must be finite for a running ladder (u2 != 0 given s != 0 mod n)
-    res["acc2_finite"] = gate(ladder_on, ~acc2_inf)
+    res["acc2_finite"] = by_ends(lambda acc1_inf, acc2_inf: gate(ladder_on, ~acc2_inf))
 
     # --- final addition: Q = acc1 + acc2 (or Q = acc2 when u1 == 0) -------
     final_ok = _check_add(pt["acc1x"], pt["acc1y"], pt["acc2x"], pt["acc2y"],
                           pt["qx"], pt["qy"], pt["f_lam"],
                           pt["f_qa"], pt["f_qb"], pt["f_qc"], pt["f_qd"], pt["f_qe"], pt["f_qf"],
                           (C,))
-    res["final_add"] = gate(valid & ~acc1_inf, final_ok)
-    res["final_add_distinct_x"] = gate(valid & ~acc1_inf, (pt["acc1x"] != pt["acc2x"]).any(-1))
-    res["final_q_from_acc2"] = gate(valid & acc1_inf, (pt["qx"] == pt["acc2x"]).all(-1)
-                                    & (pt["qy"] == pt["acc2y"]).all(-1))
+    res["final_add"] = by_ends(lambda acc1_inf, acc2_inf: gate(valid & ~acc1_inf, final_ok))
+    distinct_x = (pt["acc1x"] != pt["acc2x"]).any(-1)
+    res["final_add_distinct_x"] = by_ends(
+        lambda acc1_inf, acc2_inf: gate(valid & ~acc1_inf, distinct_x))
+    q_is_acc2 = (pt["qx"] == pt["acc2x"]).all(-1) & (pt["qy"] == pt["acc2y"]).all(-1)
+    res["final_q_from_acc2"] = by_ends(
+        lambda acc1_inf, acc2_inf: gate(valid & acc1_inf, q_is_acc2))
 
     # --- address: keccak256(Qx_be || Qy_be)[12:] --------------------------
     pad_block = torch.zeros((C, 136), dtype=torch.int64, device=dev)
@@ -704,6 +720,25 @@ def eval_constraints(w: EcrecoverWitness, config: EcrecoverConfig) -> dict:
 
 
 all_ok = pc.all_ok
+
+# row-sharded over the ladder steps: a step reads the previous step and its
+# call's columns by index; the call, read, write and memory-queue fields
+# stay whole on every member, their residuals computed on each and taken
+# from the first; the range check is ANDed over the members; the residuals
+# of the ladders' last steps' flags are sums over the members
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 0),
+    rows=frozenset({"steps", "step_execute"}),
+    every=frozenset({"limb_range"}),
+    whole=frozenset({"call_chain", "call_is_ecrecover", "reads_abi", "writes_abi",
+                     "reads_bind_scalars", "rx_binding", "t_binding", "ry_lift", "nonres_cert",
+                     "nonres_flag_domain", "r_point_range", "ry_parity", "exc_inf_domain",
+                     "call_valid_binding", "scalar_derivation", "address", "masked_address_zero",
+                     "write_success", "write_address", "mem_chain"}),
+    sums=frozenset({"exc_inf_cert", "acc2_finite", "final_add", "final_add_distinct_x",
+                    "final_q_from_acc2"}),
+    takes_window=True,
+)
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.
 generate_witness_jit = generate_witness

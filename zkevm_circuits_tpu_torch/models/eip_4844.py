@@ -21,6 +21,7 @@ witness's device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ import torch
 from ..ops import gf, keccak, nonnative as nn
 from ..utils import protocol
 from ..utils.device import resolve_device
+from ..utils.shard_plan import Axis, RowWindow, ShardPlan
 
 BLS_FR = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 ELEMENTS_PER_4844_BLOCK = 4096
@@ -181,11 +183,27 @@ def _one_block_chain_ok(states_lo, states_hi, data_bytes):
             & (ehi[0] == states_hi[1]).all())
 
 
-def eval_constraints(w: EIP4844Witness, config: EIP4844Config) -> dict:
+def _blob_block_lanes(chunks: torch.Tensor, nb: int, first: int, count: int):
+    """the (count, 17) lane halves of blocks first.. of the blob's padded
+    keccak stream of nb blocks."""
+    flat = chunks.reshape(-1)
+    stream_len = flat.shape[0]
+    idx = torch.arange(first * RATE, (first + count) * RATE, device=flat.device)
+    stream = torch.where(idx < stream_len, flat[idx.clamp(max=stream_len - 1)],
+                         torch.zeros_like(idx))
+    stream = torch.where(idx == stream_len, torch.full_like(stream, 0x01), stream)
+    stream = torch.where(idx == nb * RATE - 1, stream | 0x80, stream)
+    return keccak.lane_halves(stream.reshape(count, RATE))
+
+
+def eval_constraints(w: EIP4844Witness, config: EIP4844Config,
+                     window: Optional[RowWindow] = None) -> dict:
     """Constraint evaluation on the witness's device; every entry must be
-    all-True."""
+    all-True.  `window` places a block of elements and one of blob blocks
+    in their run (`parallel/auto.py`); None is the whole run."""
     E = config.elements
     dev = w.chunks.device
+    row0, run_e = (window.row0, window.total) if window else (0, E)
     res = {}
 
     # witness limb/byte range checks: the u16-limb identities are exact only
@@ -198,7 +216,7 @@ def eval_constraints(w: EIP4844Witness, config: EIP4844Config) -> dict:
         & (w.versioned_hash <= 0xFF).all() & (w.opening_be <= 0xFF).all())
 
     # field elements from chunk bytes (31 LE bytes -> 16 u16 limbs)
-    by = w.chunks
+    by = w.chunks[row0:row0 + E]
     hi_bytes = torch.cat([by[:, 1::2], torch.zeros((E, 1), dtype=torch.int64, device=dev)], dim=-1)
     fe = by[:, 0::2] | (hi_bytes << 8)
     res["fe_from_chunks"] = (fe == w.fe).all(-1)
@@ -210,7 +228,7 @@ def eval_constraints(w: EIP4844Witness, config: EIP4844Config) -> dict:
     # multiply: t_i * z == q_i * r + acc_{i+1}  (all but the last step)
     mul_ok = nn.sides_equal([("prod", w.t, w.z.expand(E, 16), 1)],
                             [("prod", w.mul_q, rconst, 1), ("lin", w.acc[1:], 1)], (E,))
-    is_last = torch.arange(E, device=dev) == E - 1
+    is_last = torch.arange(row0, row0 + E, device=dev) == run_e - 1
     res["horner_mul"] = torch.where(is_last, torch.ones_like(mul_ok), mul_ok)
     res["horner_last"] = torch.where(is_last, (w.t == w.acc[1:]).all(-1), torch.ones_like(mul_ok))
     res["acc_starts_zero"] = (w.acc[0] == 0).all()
@@ -224,14 +242,9 @@ def eval_constraints(w: EIP4844Witness, config: EIP4844Config) -> dict:
                           == w.linear_hash).all()
     # blob block bytes match chunk stream (+ padding)
     nb = w.blob_blocks_lo.shape[0]
-    stream_len = E * CHUNK_BYTES
-    total = nb * RATE
-    idx = torch.arange(total, device=dev)
-    flat = torch.cat([by.reshape(-1),
-                      torch.zeros(total - stream_len, dtype=torch.int64, device=dev)])
-    flat = torch.where(idx == stream_len, torch.full_like(flat, 0x01), flat)
-    flat = torch.where(idx == total - 1, flat | 0x80, flat)
-    slo, shi = keccak.lane_halves(flat.reshape(nb, RATE))
+    blob = window.axes["blob"] if window else None
+    slo, shi = _blob_block_lanes(w.chunks, blob.total if blob else nb, blob.row0 if blob else 0,
+                                 nb)
     res["blob_blocks"] = (slo == w.blob_blocks_lo).all(-1) & (shi == w.blob_blocks_hi).all(-1)
 
     # challenge hash: keccak(linear_hash || versioned_hash), z = last 16 bytes BE
@@ -262,6 +275,26 @@ def eval_constraints(w: EIP4844Witness, config: EIP4844Config) -> dict:
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# row-sharded over the Horner steps and, as a further axis, over the blob's
+# keccak blocks; the chunk bytes stay whole on every member, for a block
+# window reads the bytes of its own blocks by range; the challenge and
+# output chains are whole, and the first accumulator is the first member's;
+# the range check is ANDed over the members
+eval_constraints.shard_plan = ShardPlan(
+    rows=frozenset({"fe", "acc", "t", "add_k", "mul_q"}),
+    axes={"blob": Axis(rows_of="blob_blocks_lo",
+                       fields=frozenset({"blob_blocks_lo", "blob_blocks_hi",
+                                         "blob_states_lo", "blob_states_hi"}),
+                       residuals=frozenset({"blob_chain", "blob_blocks"}))},
+    last=frozenset({"linear_hash", "opening_serialization", "opening_canonical"}),
+    whole=frozenset({"acc_starts_zero", "challenge_chain", "truncated_hash", "z_limbs",
+                     "output_chain", "output_hash"}),
+    every=frozenset({"limb_range"}),
+    takes_window=True,
+    window_config=lambda config, rows: dataclasses.replace(config, elements=rows),
+)
 
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.

@@ -346,7 +346,7 @@ eval_constraints.shard_plan = ShardPlan(
     whole=frozenset({"call_chain", "call_is_keccak_precompile", "read_addressing",
                      "write_value_is_digest", "write_addressing", "mem_chain"}),
     takes_window=True,
-    carry_flag="block_is_first",
+    carry_flag=lambda w: w.block_is_first,
 )
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.

@@ -27,6 +27,7 @@ loop (`backend="device"`).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ import torch
 from ..base_structures.log_query import LogQueries, encode_log_queries
 from ..ops import gf, keccak, queues
 from ..utils import protocol
+from ..utils.shard_plan import Axis, RowWindow, ShardPlan
 from .demux_log_queue import pad_log_queries
 
 L2_TO_L1_MESSAGE_BYTE_LENGTH = 88
@@ -63,26 +65,25 @@ def serialize_l2_l1_bytes(q: LogQueries) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def _build_blocks(msg_bytes: torch.Tensor, n: int, max_blocks: int):
+def _build_blocks(msg_bytes: torch.Tensor, n: int, max_blocks: int, first: int = 0,
+                  count: Optional[int] = None):
     """Flatten (N, 88) messages of which the first n are real, pad keccak-style,
-    return ((B, 17) lane lo, (B, 17) lane hi, (B,) execute, nblocks)."""
+    return ((B, 17) lane lo, (B, 17) lane hi, (B,) execute, nblocks) of the
+    `count` blocks from block `first` (all `max_blocks` by default)."""
     dev = msg_bytes.device
-    total_bytes = max_blocks * RATE
-    stream = msg_bytes.reshape(-1)
-    if stream.shape[0] < total_bytes:
-        stream = torch.cat([stream, torch.zeros(total_bytes - stream.shape[0],
-                                                dtype=stream.dtype, device=dev)])
-    else:
-        stream = stream[:total_bytes]
-    idx = torch.arange(total_bytes, device=dev)
+    count = max_blocks - first if count is None else count
+    flat = msg_bytes.reshape(-1)
+    idx = torch.arange(first * RATE, (first + count) * RATE, device=dev)
+    stream = torch.where(idx < flat.shape[0], flat[idx.clamp(max=flat.shape[0] - 1)],
+                         torch.zeros_like(idx))
     msg_len = n * L2_TO_L1_MESSAGE_BYTE_LENGTH
     nblocks = msg_len // RATE + 1
     stream = torch.where(idx < msg_len, stream, torch.zeros_like(stream))
     stream = torch.where(idx == msg_len, torch.full_like(stream, 0x01), stream)
     stream = torch.where(idx == nblocks * RATE - 1, stream | 0x80, stream)
     # bytes -> 64-bit lanes (17 per block), little-endian within lane
-    lo, hi = keccak.lane_halves(stream.reshape(max_blocks, RATE))
-    execute = torch.arange(max_blocks, device=dev) < nblocks
+    lo, hi = keccak.lane_halves(stream.reshape(count, RATE))
+    execute = torch.arange(first, first + count, device=dev) < nblocks
     return lo, hi, execute, nblocks
 
 
@@ -160,15 +161,21 @@ def generate_witness(queries: LogQueries, config: LinearHasherConfig,
     )
 
 
-def eval_constraints(w: LinearHasherWitness, config: LinearHasherConfig) -> dict:
-    """Batch-parallel constraint evaluation; every entry must be all-True."""
-    total = w.execute.shape[0]
+def eval_constraints(w: LinearHasherWitness, config: LinearHasherConfig,
+                     window: Optional[RowWindow] = None) -> dict:
+    """Batch-parallel constraint evaluation; every entry must be all-True.
+    `window` places a block of queries and one of keccak blocks in their
+    run (`parallel/auto.py`); None is the whole run."""
+    rows = w.execute.shape[0]
+    row0, total = (window.row0, window.total) if window else (0, rows)
+    b0 = window.axes["blocks"].row0 if window else 0
     enc_ok = gf.equal(encode_log_queries(w.queries), w.encodings).all(-1)
     chain_ok = queues.check_chain(w.input_chain, w.encodings, w.execute)
-    ser_ok = (serialize_l2_l1_bytes(w.queries) == w.msg_bytes).all(-1)
+    ser_ok = (serialize_l2_l1_bytes(w.queries) == w.msg_bytes[row0:row0 + rows]).all(-1)
     # tx number must fit in 16 bits (truncated BE bytes enforced zero)
     tx_ok = ~w.execute | (w.queries.tx_number_in_block < (1 << 16))
-    blo, bhi, bex, nblocks = _build_blocks(w.msg_bytes, w.n, _max_blocks(total))
+    blo, bhi, bex, nblocks = _build_blocks(w.msg_bytes, w.n, _max_blocks(total), b0,
+                                           w.block_execute.shape[0])
     blocks_ok = (blo == w.block_lo).all(-1) & (bhi == w.block_hi).all(-1) & (bex == w.block_execute)
     # batch-parallel keccak transition check
     exp_lo, exp_hi = keccak.absorb_block(w.state_lo[:-1], w.state_hi[:-1], w.block_lo, w.block_hi)
@@ -176,7 +183,13 @@ def eval_constraints(w: LinearHasherWitness, config: LinearHasherConfig) -> dict
     exp_lo = torch.where(run, exp_lo, w.state_lo[:-1])
     exp_hi = torch.where(run, exp_hi, w.state_hi[:-1])
     keccak_ok = ((exp_lo == w.state_lo[1:]) & (exp_hi == w.state_hi[1:])).all(-1)
-    digest_ok = (keccak.digest_bytes(w.state_lo[nblocks], w.state_hi[nblocks]) == w.digest).all()
+    # the digest is read at the run's last executed block, clamped to the
+    # run's last state as the JAX package's gather clamps an `n` past the
+    # run: the window holding that state checks it, the others hold true
+    at = min(nblocks, _max_blocks(total)) - b0
+    digest_ok = torch.ones((), dtype=torch.bool, device=w.digest.device)
+    if 0 <= at < w.state_lo.shape[0]:
+        digest_ok = (keccak.digest_bytes(w.state_lo[at], w.state_hi[at]) == w.digest).all()
     return {
         "encodings": enc_ok,
         "input_chain": chain_ok,
@@ -190,6 +203,21 @@ def eval_constraints(w: LinearHasherWitness, config: LinearHasherConfig) -> dict
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+# row-sharded over the queries and, as a further axis, over the keccak
+# blocks (the keccak work); the serialized messages stay whole on every
+# member, for a block window reads the bytes of its own blocks by range;
+# the digest, at the run's last executed block, is ANDed over the members
+eval_constraints.shard_plan = ShardPlan(
+    rows=frozenset({"execute", "queries", "encodings", "input_chain"}),
+    axes={"blocks": Axis(rows_of="block_execute",
+                         fields=frozenset({"block_lo", "block_hi", "block_execute",
+                                           "state_lo", "state_hi"}),
+                         residuals=frozenset({"blocks", "keccak_chain"}))},
+    every=frozenset({"digest"}),
+    takes_window=True,
+)
 
 
 def serialize_l2_l1_ref(row: dict) -> bytes:

@@ -13,7 +13,7 @@ that can pass it here are cut back with `& M32`.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -21,6 +21,7 @@ from ..base_structures.log_query import LogQueries
 from ..base_structures.memory_query import MemoryQueries
 from ..ops import gf
 from ..utils import protocol
+from ..utils.shard_plan import RowWindow
 
 M32 = 0xFFFFFFFF
 
@@ -63,6 +64,16 @@ def offset_within_group(first: torch.Tensor, row0: int = 0, carry: int = 0) -> t
     `first` holds."""
     idx = torch.arange(row0, row0 + first.shape[0], device=first.device)
     return idx - torch.cummax(torch.where(first, idx, torch.full_like(idx, carry)), dim=0).values
+
+
+def group_offsets(first: torch.Tensor, window: Optional[RowWindow] = None) -> torch.Tensor:
+    """`offset_within_group` of a run, or of a window of one: the window's
+    rows before its own block start no group (the window's `flag_carry`
+    stands for the last start before the block)."""
+    if window is None:
+        return offset_within_group(first)
+    own = torch.arange(first.shape[0], device=first.device) >= window.own[0]
+    return offset_within_group(first & own, window.row0, window.flag_carry)
 
 
 def group_starts(group: torch.Tensor) -> torch.Tensor:

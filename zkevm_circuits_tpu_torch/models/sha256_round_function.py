@@ -21,6 +21,7 @@ runtime); `eval_constraints` checks every compression with one batched
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from ..base_structures.memory_query import MemoryQueries, encode_memory_queries
 from ..isa.system_params import PRECOMPILE_AUX_BYTE, SHA256_PRECOMPILE_FORMAL_ADDRESS
 from ..ops import queues, sha256
 from ..utils.device import resolve_device
+from ..utils.shard_plan import RowWindow, ShardPlan, owned_rows, summed
 from . import precompile_common as pc
 
 MEMORY_READ_QUERIES_PER_CYCLE = 2
@@ -201,9 +203,11 @@ def state_checks(state_before, state_after, block_words, is_first, execute) -> t
     return transitions, continuity
 
 
-def eval_constraints(w: Sha256RoundWitness, config: Sha256RoundFunctionConfig) -> dict:
+def eval_constraints(w: Sha256RoundWitness, config: Sha256RoundFunctionConfig,
+                     window: Optional[RowWindow] = None) -> dict:
     """Row-parallel constraint evaluation on the witness's device; every
-    entry must be all-True."""
+    entry must be all-True.  `window` places a block of rounds in its run
+    (`parallel/auto.py`); None is the whole run."""
     N = config.max_rounds
     dev = w.round_execute.device
     res = {}
@@ -230,7 +234,7 @@ def eval_constraints(w: Sha256RoundWitness, config: Sha256RoundFunctionConfig) -
         w.round_execute, (expected_block == w.block_words).all(-1), true_n)
 
     # read addressing: aligned words at input_offset + 2*round_in_call + j
-    roff = pc.offset_within_group(pc.group_starts(w.round_call))
+    roff = pc.group_offsets(pc.group_starts(w.round_call), window)
     in_page = abi["input_page"][w.round_call]
     in_off = abi["input_offset"][w.round_call]
     read_ok0 = ((w.reads.memory_page[r0] == in_page)
@@ -241,23 +245,48 @@ def eval_constraints(w: Sha256RoundWitness, config: Sha256RoundFunctionConfig) -
 
     # digest write: value limbs = LE repack of the final state of the call
     C = ce.shape[0]
-    contrib = torch.where((w.round_is_last & w.round_execute)[:, None], w.state_after,
+    own = owned_rows(window, N, dev)
+    contrib = torch.where((w.round_is_last & w.round_execute & own)[:, None], w.state_after,
                           torch.zeros_like(w.state_after))
     final_states = pc.scatter_add(C, w.round_call, contrib)
-    expected_limbs = pc.bswap32(final_states).flip(-1)  # limb[7-k] = bswap(H_k)
-    res["write_value"] = torch.where(ce, (w.writes.value == expected_limbs).all(-1), true_c)
+
+    def write_value_ok(final_states):
+        expected_limbs = pc.bswap32(final_states & M32).flip(-1)  # limb[7-k] = bswap(H_k)
+        return torch.where(ce, (w.writes.value == expected_limbs).all(-1), true_c)
+
+    res["write_value"] = summed(final_states, write_value_ok, window)
     res["write_addressing"] = torch.where(
         ce, (w.writes.memory_page == abi["output_page"]) & (w.writes.index == abi["output_offset"])
         & w.writes.rw_flag, true_c)
     # num_rounds per call must match the executed rounds
-    rounds_per_call = pc.scatter_add(C, w.round_call, w.round_execute)
-    res["num_rounds"] = torch.where(ce, rounds_per_call == abi["num_rounds"], true_c)
+    rounds_per_call = pc.scatter_add(C, w.round_call, w.round_execute & own)
+    res["num_rounds"] = summed(
+        rounds_per_call, lambda s: torch.where(ce, (s & M32) == abi["num_rounds"], true_c), window)
 
     res["mem_chain"] = queues.check_chain(w.mem_chain, w.mem_order_encodings, w.mem_order_execute)
     return res
 
 
 all_ok = pc.all_ok
+
+# row-sharded over the rounds (two reads a round): a round reads the
+# previous round's output; its offset in its call carries the last call
+# start before the block; the call, write and memory-queue fields stay
+# whole on every member (the memory chain runs in the calls' order), their
+# residuals computed on each and taken from the first; the digest and the
+# round count of a call are sums of its rounds over the members
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 0),
+    rows=frozenset({"round_execute", "round_call", "round_is_first", "round_is_last",
+                    "block_words", "state_before", "state_after", "reads", "read_execute"}),
+    entries={"reads": 2, "read_execute": 2},
+    whole=frozenset({"call_chain", "call_is_sha256_precompile", "write_addressing",
+                     "mem_chain"}),
+    sums=frozenset({"write_value", "num_rounds"}),
+    takes_window=True,
+    carry_flag=lambda w: pc.group_starts(w.round_call),
+    window_config=lambda config, rows: dataclasses.replace(config, max_rounds=rows),
+)
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.
 generate_witness_jit = generate_witness

@@ -26,6 +26,7 @@ row in parallel on the witness's device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -38,6 +39,7 @@ from ..ops import gf, queues
 from ..ops.queues import QueueState
 from ..utils import challenges as chal
 from ..utils import protocol
+from ..utils.shard_plan import RowWindow, ShardPlan
 
 NUM_REPETITIONS = chal.DEFAULT_NUM_REPETITIONS
 NUM_CHALLENGES = DECOMMIT_QUERY_PACKED_WIDTH + 1
@@ -107,11 +109,22 @@ def _key_gt_prev(s: DecommitQueries, total: int) -> torch.Tensor:
     return hash_gt | (hash_eq & (s.timestamp > prev.timestamp))
 
 
-def _group_first_ts(s: DecommitQueries, same: torch.Tensor, total: int) -> torch.Tensor:
+def _group_first_ts(s: DecommitQueries, same: torch.Tensor, total: int,
+                    window: Optional[RowWindow] = None) -> torch.Tensor:
     row = torch.arange(total, device=same.device)
-    start_idx = torch.where(~same, row, torch.zeros_like(row))
-    group_start = torch.cummax(start_idx, dim=0).values
-    return s.timestamp[group_start]
+    if window is None:
+        start_idx = torch.where(~same, row, torch.zeros_like(row))
+        group_start = torch.cummax(start_idx, dim=0).values
+        return s.timestamp[group_start]
+    # a window: the group starts of its own rows, else the last one before
+    # them (the plan's carry) and its timestamp
+    run = row + window.row0
+    starts = ~same & (row >= window.own[0])
+    group_start = torch.cummax(torch.where(starts, run, torch.full_like(run, window.flag_carry)),
+                               dim=0).values
+    inside = group_start >= window.row0 + window.own[0]
+    return torch.where(inside, s.timestamp[(group_start - window.row0).clamp(min=0)],
+                       window.carried["timestamp"])
 
 
 def _fs_challenges(chain_u: torch.Tensor, chain_s: torch.Tensor, total: int, n: int):
@@ -204,8 +217,11 @@ def generate_witness(
     )
 
 
-def eval_constraints(w: DecommitSorterWitness, config: DecommitSorterConfig) -> dict:
-    """Row-parallel constraint evaluation; every entry must be all-True."""
+def eval_constraints(w: DecommitSorterWitness, config: DecommitSorterConfig,
+                     window: Optional[RowWindow] = None) -> dict:
+    """Row-parallel constraint evaluation; every entry must be all-True.
+    `window` places a block of rows in its run (`parallel/auto.py`); None is
+    the whole run."""
     total = w.execute.shape[0]
     dev = w.execute.device
     s = w.sorted
@@ -242,7 +258,7 @@ def eval_constraints(w: DecommitSorterWitness, config: DecommitSorterConfig) -> 
     page_ok = torch.where(w.execute & same & prev_exec, s.page == prev.page, true)
 
     # result queue checks
-    first_ts_ok = _group_first_ts(s, same, total) == w.first_enc_ts
+    first_ts_ok = _group_first_ts(s, same, total, window) == w.first_enc_ts
     add = (~same) & prev_exec
     add_ok = torch.cat([add, w.execute[total - 1 :]]) == w.result_add
     enc_result = encode_decommit_queries(w.result_items)
@@ -273,6 +289,25 @@ def eval_constraints(w: DecommitSorterWitness, config: DecommitSorterConfig) -> 
 
 def all_ok(residuals: dict) -> bool:
     return all(bool(v.all()) for v in residuals.values())
+
+
+def _group_starts(w: DecommitSorterWitness) -> torch.Tensor:
+    return ~_same_hash_as_prev(w.sorted, w.execute.shape[0])
+
+
+# row-sharded as log_sorter: a row reads the previous row, the result queue
+# one entry more; the challenges come from the run's queue tails; a row's
+# first-encounter timestamp is its hash group's first row's, carried from
+# the last group start before the block
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 1),
+    replicated=frozenset({"challenges"}),
+    tails=frozenset({"chain_unsorted", "chain_sorted"}),
+    last=frozenset({"challenges", "grand_product_final"}),
+    takes_window=True,
+    carry_flag=_group_starts,
+    carry_values=lambda w: {"timestamp": w.sorted.timestamp},
+)
 
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from ..isa.system_params import STORAGE_AUX_BYTE
 from ..ops import blake2s, gf, keccak, queues
 from ..utils import protocol
 from ..utils.device import resolve_device
+from ..utils.shard_plan import Axis, PartialSum, RowWindow, ShardPlan, owned_rows, summed
 from . import precompile_common as pc
 
 STORAGE_DEPTH = 256
@@ -426,9 +428,12 @@ def path_levels_ok(derived_keys: torch.Tensor, row_query: torch.Tensor, row_node
     return torch.cat(out)
 
 
-def eval_constraints(w: StorageApplicationWitness, config: StorageApplicationConfig) -> dict:
+def eval_constraints(w: StorageApplicationWitness, config: StorageApplicationConfig,
+                     window: Optional[RowWindow] = None) -> dict:
     """Row-parallel constraint evaluation on the witness's device; every
-    entry must be all-True."""
+    entry must be all-True.  `window` places a block of stage rows and one
+    of diff blocks in their run (`parallel/auto.py`); None is the whole
+    run."""
     N = config.max_rows
     dev = w.row_execute.device
     res = {}
@@ -495,22 +500,58 @@ def eval_constraints(w: StorageApplicationWitness, config: StorageApplicationCon
     res["counter_chain"] = (w.counters[1:, 0] == new_lo) & (w.counters[1:, 1] == new_hi)
 
     # queries must alternate correctly: every write query has both stages
-    rows_per_query = pc.scatter_add(q.shape[0], w.row_query, re_)
+    rows_per_query = pc.scatter_add(q.shape[0], w.row_query, re_ & owned_rows(window, N, dev))
     expected_rows = torch.where(q.rw_flag, 2, 1)
-    res["stage_counts"] = torch.where(qe, rows_per_query == expected_rows, true_q)
+    res["stage_counts"] = summed(
+        rows_per_query, lambda s: torch.where(qe, (s & M32) == expected_rows, true_q), window)
 
     # keccak accumulator chain + digest
     abs_lo, abs_hi = keccak.absorb_block(w.diff_states_lo[:-1], w.diff_states_hi[:-1],
                                          w.diff_blocks_lo, w.diff_blocks_hi)
     ok = (abs_lo == w.diff_states_lo[1:]).all(-1) & (abs_hi == w.diff_states_hi[1:]).all(-1)
     res["diffs_keccak_chain"] = torch.where(w.diff_block_execute, ok, torch.ones_like(ok))
-    nblocks = w.diff_block_execute.sum()
-    res["diffs_digest"] = (keccak.digest_bytes(w.diff_states_lo[nblocks], w.diff_states_hi[nblocks])
-                           == w.diffs_digest).all()
+    diffs = window.axes["diffs"] if window else None
+    if diffs is None:
+        nblocks = w.diff_block_execute.sum()
+        res["diffs_digest"] = (keccak.digest_bytes(w.diff_states_lo[nblocks],
+                                                   w.diff_states_hi[nblocks])
+                               == w.diffs_digest).all()
+        return res
+    # the digest is read at the run's count of executed blocks: each member
+    # counts its own blocks and marks which of its own states hold the digest
+    b = w.diff_block_execute.shape[0]
+    own = owned_rows(diffs, b + 1, dev) | (torch.arange(b + 1, device=dev) + diffs.row0
+                                           == diffs.total)
+    holds = (keccak.digest_bytes(w.diff_states_lo, w.diff_states_hi)
+             == w.diffs_digest).all(-1) & own
+    share = torch.zeros(diffs.total + 2, dtype=torch.int64, device=dev)
+    share[diffs.row0:diffs.row0 + b + 1] = holds.to(torch.int64)
+    share[-1] = (w.diff_block_execute & owned_rows(diffs, b, dev)).sum()
+    res["diffs_digest"] = PartialSum(share, lambda s: s[s[-1]] == 1)
     return res
 
 
 all_ok = pc.all_ok
+
+# row-sharded over the stage rows (the path climbs) and, as a further axis,
+# over the diff keccak blocks; a row reads the previous row and reaches its
+# query by index: the query fields stay whole on every member (their
+# residuals computed on each, taken from the first); the stages a query
+# counts and the digest at the run's block count are sums over the members
+eval_constraints.shard_plan = ShardPlan(
+    halo=(1, 0),
+    rows=frozenset({"row_execute", "row_query", "row_is_write_stage", "row_leaf_index",
+                    "row_leaf_value", "row_path", "row_nodes", "roots", "counters"}),
+    axes={"diffs": Axis(rows_of="diff_block_execute",
+                        fields=frozenset({"diff_blocks_lo", "diff_blocks_hi",
+                                          "diff_block_execute", "diff_states_lo",
+                                          "diff_states_hi"}),
+                        residuals=frozenset({"diffs_keccak_chain"}))},
+    whole=frozenset({"query_chain", "shard_and_aux", "derived_key"}),
+    sums=frozenset({"stage_counts", "diffs_digest"}),
+    takes_window=True,
+    window_config=lambda config, rows: dataclasses.replace(config, max_rows=rows),
+)
 
 # PyTorch runs eagerly: the counterparts of the JAX package's jitted names.
 generate_witness_jit = generate_witness

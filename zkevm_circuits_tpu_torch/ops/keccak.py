@@ -144,28 +144,25 @@ def digest_bytes(state_lo: torch.Tensor, state_hi: torch.Tensor) -> torch.Tensor
 _M64 = (1 << 64) - 1
 
 
-def _rotl_ref(v: int, r: int) -> int:
-    r %= 64
-    return ((v << r) | (v >> (64 - r))) & _M64
+# theta's column per lane and rho-pi's (source, column, destination,
+# rotation, 64 - rotation) per lane; chi's two neighbours of each lane
+_RHO_PI = [(x + 5 * y, x, y + 5 * ((2 * x + 3 * y) % 5), ROT[x][y], 64 - ROT[x][y])
+           for x in range(5) for y in range(5)]
+_CHI = [(i, (i + 1) % 5 + i - i % 5, (i + 2) % 5 + i - i % 5) for i in range(25)]
 
 
 def keccak_f1600_ref(state: Sequence[int]) -> List[int]:
     A = [v & _M64 for v in state]
     if len(A) != 25:
         raise ValueError(f"a keccak state has 25 lanes, got {len(A)}")
+    B = [0] * 25
     for rc in ROUND_CONSTANTS:
-        C = [A[_idx(x, 0)] ^ A[_idx(x, 1)] ^ A[_idx(x, 2)] ^ A[_idx(x, 3)] ^ A[_idx(x, 4)] for x in range(5)]
-        D = [C[(x - 1) % 5] ^ _rotl_ref(C[(x + 1) % 5], 1) for x in range(5)]
-        for x in range(5):
-            for y in range(5):
-                A[_idx(x, y)] ^= D[x]
-        B = [0] * 25
-        for x in range(5):
-            for y in range(5):
-                B[_idx(y, (2 * x + 3 * y) % 5)] = _rotl_ref(A[_idx(x, y)], ROT[x][y])
-        for x in range(5):
-            for y in range(5):
-                A[_idx(x, y)] = B[_idx(x, y)] ^ ((~B[_idx((x + 1) % 5, y)] & _M64) & B[_idx((x + 2) % 5, y)])
+        C = [A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20] for x in range(5)]
+        D = [C[x - 1] ^ (((C[x - 4] << 1) | (C[x - 4] >> 63)) & _M64) for x in range(5)]
+        for src, x, dst, r, left in _RHO_PI:
+            v = A[src] ^ D[x]
+            B[dst] = ((v << r) | (v >> left)) & _M64
+        A = [B[i] ^ (~B[j] & B[k]) for i, j, k in _CHI]
         A[0] ^= rc
     return A
 

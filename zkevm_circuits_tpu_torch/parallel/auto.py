@@ -7,15 +7,22 @@ PyTorch has no partitioner, so each circuit states what its evaluation
 needs of other rows in a `utils.shard_plan.ShardPlan`, kept beside its
 `eval_constraints` as `eval_constraints.shard_plan`:
 
-  1. `shard_rows` keeps this member's contiguous block of every row-axis
-     field (the last member also the fields' extra entries);
+  1. `_cut` splits each of the plan's row axes (the "rows" of the caller's
+     `num_rows` and the plan's further axes) into blocks of ceil(N / D)
+     rows, the last member's the rest; a member keeps its block of every
+     field of the axis, k entries a row (the last member also the field's
+     extra entries), and every other field whole;
   2. the halo rows come from the neighbours in two rings of point-to-point
-     messages (all fields packed into one int64 buffer a direction), and
-     the run's last entry of the plan's tail fields by one broadcast;
+     messages an axis (all its fields packed into one int64 buffer a
+     direction), the run's last entry of the plan's tail fields by one
+     broadcast, the last group start before the block (and its carried
+     values) by one all-gather;
   3. the circuit's own `eval_constraints` runs on the window (with a
      `RowWindow` where the plan asks for one);
-  4. the residuals are cut back to the block and all-gathered, or taken from
-     the member the plan names.
+  4. each residual is made as the plan names it: cut back to the block and
+     all-gathered (k entries a row, on the row axis it lies on), taken from
+     the first or the last member (`whole`, `last`), ANDed over the members (`every`), or
+     summed over the members and finished (`sums`).
 
 The result equals the unsharded `eval_constraints(witness, config)` on
 every member, key for key.  A circuit without a plan raises
@@ -25,11 +32,11 @@ every member, key for key.  A circuit without a plan raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, FrozenSet, List, Optional, Tuple
 
 import torch
 
-from ..utils.shard_plan import RowWindow, ShardPlan
+from ..utils.shard_plan import PartialSum, RowWindow, ShardPlan
 from . import mesh as meshlib
 
 _AXIS = "rows"
@@ -82,44 +89,85 @@ def plan_of(eval_fn: Callable) -> ShardPlan:
     return plan
 
 
+def _extras(name: str, value, k: int, n: int, strict: bool) -> Optional[int]:
+    """the extra entries of a field of k entries a row over n rows (None
+    when it is not one and `strict` is off)."""
+    leaves = _leaves(value)
+    extras = {int(t.shape[0]) - k * n if t.dim() else -1 for t in leaves}
+    if leaves and len(extras) == 1 and extras <= {0, 1, 2}:
+        return extras.pop()
+    if strict:
+        raise ValueError(f"row field {name} has leading sizes {sorted(extras)} "
+                         f"for {n} rows of {k} entries")
+    return None
+
+
 def _row_fields(witness, plan: ShardPlan, num_rows: int) -> dict:
     """{field: extra entries} of the fields on the row axis."""
+    further = {f for ax in plan.axes.values() for f in ax.fields}
     out = {}
     for name, value in _fields(witness):
-        leaves = _leaves(value)
-        if not leaves or name in plan.replicated:
+        if not _leaves(value) or name in plan.replicated or name in further:
             continue
         if plan.rows is not None and name not in plan.rows:
             continue
-        extras = {int(t.shape[0]) - num_rows if t.dim() else -1 for t in leaves}
-        if len(extras) == 1 and extras <= {0, 1, 2}:
-            out[name] = extras.pop()
-        elif plan.rows is not None:
-            raise ValueError(f"row field {name} has leading sizes {sorted(extras)} "
-                             f"for {num_rows} rows")
+        extra = _extras(name, value, plan.entries.get(name, 1), num_rows, plan.rows is not None)
+        if extra is not None:
+            out[name] = extra
     return out
 
 
 # ---------------------------------------------------------------------------
-# blocks and windows
+# the axes' blocks and windows
 # ---------------------------------------------------------------------------
 
 
-def shard_rows(witness, mesh: meshlib.Mesh, num_rows: int, plan: ShardPlan,
-               axis: str = _AXIS):
-    """This member's block of the witness: each row-axis field cut to the
-    member's rows (the last member keeps the field's extra entries after
-    them); every other field whole.  Returns (block witness, row fields)."""
-    rows = _row_fields(witness, plan, num_rows)
-    sl = meshlib.Layout(mesh, axis).block(num_rows)
-    last = mesh.index(axis) == mesh.size(axis) - 1
-    values = {}
-    for name, value in _fields(witness):
-        if name in rows:
-            stop = sl.stop + (rows[name] if last else 0)
-            value = _map_leaves(value, lambda t: t[sl.start:stop].clone())
-        values[name] = value
-    return _rebuild(witness, values), rows
+@dataclasses.dataclass(frozen=True)
+class _Cut:
+    """One row axis on this member: the run's `n` rows in blocks of `L`
+    (the last member's the rest), this member's `mine` rows from run row
+    `lo`; its fields {name: (entries a row, extra entries)}, halo and tail
+    fields."""
+
+    n: int
+    L: int
+    lo: int
+    mine: int
+    first: bool
+    last: bool
+    fields: dict
+    halo: Tuple[int, int]
+    tails: FrozenSet[str]
+
+    @property
+    def before(self) -> int:
+        return 0 if self.first else self.halo[0]
+
+    @property
+    def after(self) -> int:
+        return 0 if self.last else self.halo[1]
+
+    @property
+    def rows(self) -> int:  # the window's rows
+        return self.before + self.mine + self.after
+
+    def window(self) -> RowWindow:
+        return RowWindow(row0=self.lo - self.before, total=self.n,
+                         own=(self.before, self.before + self.mine))
+
+
+def _cut(n: int, fields: dict, halo, tails, mesh: meshlib.Mesh, axis: str) -> _Cut:
+    d, i = mesh.size(axis), mesh.index(axis)
+    L = -(-n // d)
+    rest = n - (d - 1) * L
+    hb, ha = halo
+    # a block sends hb rows on, and ha rows and the extra entries back
+    need = max([hb] + [ha + -(-e // k) for k, e in fields.values()])
+    if L < need or rest < max(1, hb, ha):
+        raise ValueError(f"{n} rows in blocks of {L} (the last {rest}) do not hold the "
+                         f"halo {tuple(halo)} over {d} members")
+    return _Cut(n, L, i * L, rest if i == d - 1 else L, i == 0, i == d - 1, fields,
+                tuple(halo), frozenset(tails))
 
 
 def _pack(pieces: List[torch.Tensor]) -> torch.Tensor:
@@ -136,99 +184,141 @@ def _unpack(buf: torch.Tensor, likes: List[torch.Tensor], rows: List[int]):
     return out
 
 
-def _window(block, rows: dict, plan: ShardPlan, mesh: meshlib.Mesh, axis: str, L: int):
-    """The block with its halos and, on all but the last member, the run's
-    last entry of each tail field.  Returns (window, rows before, rows after)."""
-    hb, ha = plan.halo
-    d, i = mesh.size(axis), mesh.index(axis)
-    first, last = i == 0, i == d - 1
-    if L < max(hb, ha + 2):
-        raise ValueError(f"blocks of {L} rows are shorter than the halo {plan.halo}")
-    fields = _fields_dict(block)
-    flat = [(n, t) for n in rows for t in _leaves(fields[n])]
+def _block(t: torch.Tensor, cut: _Cut, k: int, extra: int) -> torch.Tensor:
+    """this member's entries of a field: k a row, the extra ones on the last."""
+    return t[cut.lo * k:(cut.lo + cut.mine) * k + (extra if cut.last else 0)].clone()
+
+
+def _window(fields: dict, cut: _Cut, mesh: meshlib.Mesh, axis: str) -> dict:
+    """{id(leaf): its window}: the member's block of each leaf of the axis
+    with the halo entries of the neighbours and, on all but the last
+    member, the run's last entry of each tail field."""
+    hb, ha = cut.halo
+    flat = [(n, _block(t, cut, *cut.fields[n])) for n in cut.fields for t in _leaves(fields[n])]
     likes = [t for _, t in flat]
+    ks = [cut.fields[n][0] for n, _ in flat]
     before = after = None
     if hb:  # my last hb rows to the next member
-        got = meshlib.ppermute(_pack([t[L - hb:L] for t in likes]), mesh, axis, 1)
-        before = _unpack(got, likes, [hb] * len(flat))
-    want = [ha + rows[n] for n, _ in flat]
-    if any(want):  # my first ha + k rows to the previous member
-        got = meshlib.ppermute(_pack([t[:k] for t, k in zip(likes, want)]), mesh, axis, -1)
+        got = meshlib.ppermute(
+            _pack([t[(cut.mine - hb) * k:cut.mine * k] for t, k in zip(likes, ks)]), mesh, axis, 1)
+        before = _unpack(got, likes, [hb * k for k in ks])
+    want = [ha * k + cut.fields[n][1] for (n, _), k in zip(flat, ks)]
+    if any(want):  # my first ha rows and the extra entries to the previous member
+        got = meshlib.ppermute(_pack([t[:m] for t, m in zip(likes, want)]), mesh, axis, -1)
         after = _unpack(got, likes, want)
-    tails = [j for j, (n, _) in enumerate(flat) if n in plan.tails]
+    tails = [j for j, (n, _) in enumerate(flat) if n in cut.tails]
     if tails:  # the run's last entries, from the last member
         sizes = [likes[j][0].numel() for j in tails]
-        buf = (_pack([likes[j][-1:] for j in tails]) if last else
+        buf = (_pack([likes[j][-1:] for j in tails]) if cut.last else
                torch.zeros(sum(sizes), dtype=torch.int64, device=likes[0].device))
-        run_last = meshlib.broadcast(buf, mesh, axis, d - 1).split(sizes)
-    new = {}
-    for j, (n, t) in enumerate(flat):
-        parts = [before[j]] if hb and not first else []
-        parts.append(t[:L + (rows[n] if last else 0)])
-        if after is not None and not last:
+        run_last = meshlib.broadcast(buf, mesh, axis, mesh.size(axis) - 1).split(sizes)
+    out = {}
+    for j, t in enumerate(likes):
+        parts = [before[j]] if hb and not cut.first else []
+        parts.append(t)
+        if after is not None and not cut.last:
             parts.append(after[j])
-        new[id(t)] = torch.cat(parts)
-    if tails and not last:
+        out[j] = torch.cat(parts)
+    if tails and not cut.last:
         for j, entry in zip(tails, run_last):
-            w = new[id(likes[j])]
-            w[-1] = entry.reshape(w.shape[1:]).to(w.dtype)
-    values = {name: _map_leaves(value, lambda t: new[id(t)]) if name in rows else value
-              for name, value in fields.items()}
-    return _rebuild(block, values), (0 if first else hb), (0 if last else ha)
+            out[j][-1] = entry.reshape(out[j].shape[1:]).to(out[j].dtype)
+    leaves = [t for n in cut.fields for t in _leaves(fields[n])]
+    return {id(t): out[j] for j, t in enumerate(leaves)}
 
 
-def _flag_carry(block, plan: ShardPlan, mesh, axis: str, lo: int, L: int) -> int:
-    """the last run row before this member's block whose carry flag holds."""
-    flag = _fields_dict(block)[plan.carry_flag][:L]
-    idx = torch.arange(lo, lo + L, device=flag.device)
-    mine = torch.where(flag, idx, torch.zeros_like(idx)).max().reshape(1)
+def _windowed(witness, cuts: dict, mesh: meshlib.Mesh, axis: str):
+    """the witness with every axis's fields replaced by their windows."""
+    fields = _fields_dict(witness)
+    new = {}
+    for cut in cuts.values():
+        new.update(_window(fields, cut, mesh, axis))
+    on_axes = {n for cut in cuts.values() for n in cut.fields}
+    return _rebuild(witness, {name: _map_leaves(value, lambda t: new[id(t)])
+                              if name in on_axes else value
+                              for name, value in fields.items()})
+
+
+def _carry(win, plan: ShardPlan, cut: _Cut, mesh: meshlib.Mesh, axis: str):
+    """(the last run row before this member's block where the carry flag
+    holds, 0 when none does; the plan's carry values at that row)."""
+    flag = plan.carry_flag(win)[cut.before:cut.before + cut.mine]
+    idx = torch.arange(cut.lo, cut.lo + cut.mine, device=flag.device)
+    mine = torch.where(flag, idx, torch.full_like(idx, 0 if cut.first else -1)).max().reshape(1)
     every = meshlib.all_gather(mine, mesh, axis)[:, 0]
-    return int(every[:mesh.index(axis)].max()) if mesh.index(axis) else 0
+    i = mesh.index(axis)
+    src = int(torch.argmax(every[:i])) if i else 0
+    row = int(every[src]) if i else 0
+    if plan.carry_values is None:
+        return row, None
+    values = plan.carry_values(win)
+    at = max(int(mine[0]) - (cut.lo - cut.before), 0)
+    likes = [v[at:at + 1] for v in values.values()]
+    got = meshlib.all_gather(_pack(likes), mesh, axis)[src]
+    carried = _unpack(got, likes, [1] * len(likes))
+    return row, {k: v[0] for k, v in zip(values, carried)}
 
 
-def _gather_rows(res: torch.Tensor, key: str, off: int, L: int, T: int,
-                 mesh, axis: str) -> torch.Tensor:
-    """A per-row residual of the window (T rows, or T plus the extra
+def _gather_rows(res: torch.Tensor, key: str, cut: _Cut, k: int,
+                 mesh: meshlib.Mesh, axis: str) -> torch.Tensor:
+    """A residual of k entries a row of the window (or those and the extra
     entries) cut to this member's block and gathered in run order."""
-    extra = int(res.shape[0]) - T if res.dim() else -1
+    extra = int(res.shape[0]) - k * cut.rows if res.dim() else -1
     if extra not in (0, 1, 2):
         raise ValueError(f"residual {key} of shape {tuple(res.shape)} is neither per row "
                          f"nor named in the shard plan")
-    d = mesh.size(axis)
-    last = mesh.index(axis) == d - 1
-    mine = res[off:off + L + (extra if last else 0)]
-    if not last and extra:
-        mine = torch.cat([mine, torch.zeros_like(res[:extra])])
-    every = meshlib.all_gather(mine, mesh, axis)  # (D, L + extra, ...)
-    head = every[:, :L].reshape((d * L,) + tuple(res.shape[1:]))
-    return torch.cat([head, every[-1, L:]]) if extra else head
+    shape = tuple(res.shape[1:])
+    off, full, mine = cut.before * k, cut.L * k, cut.mine * k
+    parts = [res[off:off + mine], res.new_zeros((full - mine,) + shape)]
+    parts.append(res[off + mine:off + mine + extra] if cut.last else
+                 res.new_zeros((extra,) + shape))
+    every = meshlib.all_gather(torch.cat(parts), mesh, axis)  # (D, L k + extra, ...)
+    rest = (cut.n - (mesh.size(axis) - 1) * cut.L) * k
+    return torch.cat([every[:-1, :full].reshape((-1,) + shape), every[-1, :rest],
+                      every[-1, full:]])
 
 
 def eval_sharded(eval_fn: Callable, witness, config, mesh: meshlib.Mesh, num_rows: int,
                  axis: str = _AXIS) -> dict:
     """`eval_fn(witness, config)` over the members of `axis`, each holding a
-    block of `num_rows // D` rows; the whole run's residuals on every
-    member.  Every member passes the same witness and config."""
+    block of the `num_rows` rows (and of each further axis of the plan);
+    the whole run's residuals on every member.  Every member passes the
+    same witness and config."""
     plan = plan_of(eval_fn)
-    d = mesh.size(axis)
-    if num_rows % d:
-        raise ValueError(f"{num_rows} rows do not split over {d} members")
-    L = num_rows // d
-    lo = mesh.index(axis) * L
-    block, rows = shard_rows(witness, mesh, num_rows, plan, axis)
-    win, before, after = _window(block, rows, plan, mesh, axis, L)
-    T = before + L + after  # window rows
+    fields = _fields_dict(witness)
+    main = _cut(num_rows, {n: (plan.entries.get(n, 1), e)
+                           for n, e in _row_fields(witness, plan, num_rows).items()},
+                plan.halo, plan.tails, mesh, axis)
+    cuts = {None: main}
+    for name, ax in plan.axes.items():
+        n = int(_leaves(fields[ax.rows_of])[0].shape[0])
+        # in the witness's order: every member packs its messages alike
+        cuts[name] = _cut(n, {f: (1, _extras(f, v, 1, n, True)) for f, v in fields.items()
+                              if f in ax.fields}, ax.halo, frozenset(), mesh, axis)
+    win = _windowed(witness, cuts, mesh, axis)
     kwargs = {}
     if plan.takes_window:
-        carry = _flag_carry(block, plan, mesh, axis, lo, L) if plan.carry_flag else 0
-        kwargs["window"] = RowWindow(row0=lo - before, total=num_rows, flag_carry=carry)
-    res = eval_fn(win, plan.window_config(config, T), **kwargs)
+        carry, carried = _carry(win, plan, main, mesh, axis) if plan.carry_flag else (0, None)
+        kwargs["window"] = dataclasses.replace(
+            main.window(), flag_carry=carry, carried=carried,
+            axes={name: c.window() for name, c in cuts.items() if name is not None} or None)
+    res = eval_fn(win, plan.window_config(config, main.rows), **kwargs)
+    axis_of = {key: name for name, ax in plan.axes.items() for key in ax.residuals}
+    d = mesh.size(axis)
     out = {}
     for key, value in res.items():
-        if key in plan.whole:
+        if key in plan.sums:
+            if not isinstance(value, PartialSum):
+                raise TypeError(f"residual {key} is a sum of the plan: its window gives a "
+                                f"PartialSum, not {type(value).__name__}")
+            out[key] = value.finish(meshlib.all_gather(value.value, mesh, axis).sum(0))
+        elif key in plan.every:
+            out[key] = meshlib.all_gather(value, mesh, axis).all(0)
+        elif key in plan.whole:
             out[key] = meshlib.broadcast(value, mesh, axis, 0)
         elif key in plan.last:
             out[key] = meshlib.broadcast(value, mesh, axis, d - 1)
         else:
-            out[key] = _gather_rows(value, key, before, L, T, mesh, axis)
+            name = axis_of.get(key)
+            k = plan.entries.get(key, 1) if name is None else 1
+            out[key] = _gather_rows(value, key, cuts[name], k, mesh, axis)
     return out
