@@ -25,6 +25,7 @@ from zkevm_circuits_tpu_torch.isa import opcodes as isa
 from zkevm_circuits_tpu_torch.models import recursion, scheduler, vm
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.runtime import block, block2, chain
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = torch.device("cpu")
 CONFIG = block2.Block2Config(vm_limit=64, vm_instance_limit=16, sorter_limit=16, hasher_limit=16,

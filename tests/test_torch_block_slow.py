@@ -24,6 +24,7 @@ import torch
 from torch_block_helpers import jax_block2_program, u64
 from zkevm_circuits_tpu.runtime import block2 as jblock2
 from zkevm_circuits_tpu_torch.runtime import block2
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

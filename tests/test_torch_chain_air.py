@@ -19,19 +19,11 @@ from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
 from zkevm_circuits_tpu_torch.prover import stark
 from zkevm_circuits_tpu_torch.runtime import native
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 SPECS = {"full": (pa.FULL, jpa.FULL, 8, 5), "narrow": (pa.NARROW, jpa.NARROW, 20, 2)}
 GAMMAS = {"random": 0x9E3779B97F4A7C15 % gf.MODULUS, "zero": 0, "one": 1}
 COMPOSE_ROWS = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u64(x):

@@ -23,19 +23,11 @@ from zkevm_circuits_tpu_torch.ops.poseidon2_cuda import (
     permutation_cuda,
 )
 from zkevm_circuits_tpu_torch.runtime import native
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 P = gf.MODULUS
 SEGMENTS, STRIDE = 8, 16
 N = SEGMENTS * STRIDE
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

@@ -11,23 +11,15 @@ proof costs minutes of XLA:CPU compiles).
 
 import numpy as np
 import pytest
-import torch
 
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
 from zkevm_circuits_tpu_torch.runtime import native
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 PARAMS = {"narrow": StarkParams(log_n=3, log_blowup=2, num_queries=8, cap_log2=1),
           "full": StarkParams(log_n=3, log_blowup=2, num_queries=8, cap_log2=1)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _chain_case(name):

@@ -41,6 +41,7 @@ from zkevm_circuits_tpu_torch.isa import system_params as sp
 from zkevm_circuits_tpu_torch.prover import (blake2s_air, demux_air, ecrecover_air, horner_air,
                                              keccak_air, sha256_air)
 from zkevm_circuits_tpu_torch.utils.convert import proof_from_ints, proof_to_ints
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

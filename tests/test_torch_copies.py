@@ -18,6 +18,7 @@ from zkevm_circuits_tpu_torch.isa import opcodes, system_params
 from zkevm_circuits_tpu_torch.ops import gf, poseidon2
 from zkevm_circuits_tpu_torch.utils import grain
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 def _public(mod):

@@ -30,6 +30,7 @@ from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     demux_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 

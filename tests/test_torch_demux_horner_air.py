@@ -28,17 +28,10 @@ from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import demux_air, horner_air
 from zkevm_circuits_tpu_torch.prover.air_common import residuals
 from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CHALLENGES = [(0x1234567, 0x89ABCDEF, 77), (5, 0, 1), (gf.MODULUS - 1, gf.MODULUS - 2, 3)]
 E = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def queries():

@@ -16,6 +16,7 @@ from zkevm_circuits_tpu_torch.models import ram_permutation as ram, vm
 from zkevm_circuits_tpu_torch.ops import fri, gf, poseidon2, queues
 from zkevm_circuits_tpu_torch.utils import convert, device
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture

@@ -29,6 +29,7 @@ from zkevm_circuits_tpu_torch.ops import secp256k1 as ec
 from zkevm_circuits_tpu_torch.utils.convert import (
     ecrecover_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 FIELDS = ("call_chain", "mem_chain")

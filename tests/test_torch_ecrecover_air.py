@@ -29,19 +29,12 @@ from zkevm_circuits_tpu_torch.ops.keccak import keccak256_ref
 from zkevm_circuits_tpu_torch.prover import ecrecover_air
 from zkevm_circuits_tpu_torch.prover.air_common import residuals
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CHALLENGES = [(0x1234567, 0x89ABCDEF), (gf.MODULUS - 1, 3)]
 # the phase-2 columns (a Fermat inversion a byte cell) are built under one
 CH = CHALLENGES[0]
 PRIV = 0xC0FFEE
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def signed_call():

@@ -25,6 +25,7 @@ from zkevm_circuits_tpu_torch.models import eip_4844 as e44
 from zkevm_circuits_tpu_torch.utils.convert import (
     eip_4844_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 ELEMENTS = 16

@@ -15,15 +15,7 @@ import jax.numpy as jnp
 from zkevm_circuits_tpu.ops import gf as jgf
 from zkevm_circuits_tpu.ops.gf import gf_ref
 from zkevm_circuits_tpu_torch.ops import gf
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 P = gf.MODULUS

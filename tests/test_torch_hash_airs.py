@@ -28,6 +28,7 @@ from zkevm_circuits_tpu_torch.ops.keccak import keccak256_ref
 from zkevm_circuits_tpu_torch.prover import blake2s_air, keccak_air, sha256_air
 from zkevm_circuits_tpu_torch.prover.air_common import residuals
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 GAMMA = 0x1234567
 MESSAGES = [b"abc", bytes(range(200))]  # 1 and 2 keccak blocks; 1 and 4 sha256 blocks
@@ -37,14 +38,6 @@ BLAKE_CALLS = [b"\xaa" * 32 + b"\xbb" * 32, b"\x00" * 12 + b"\x11" * 20 + b"\x22
 CASES = ([("keccak", m) for m in range(len(MESSAGES))]
          + [("sha256", m) for m in range(len(MESSAGES))]
          + [("sha256_blocks", 0), ("blake2s", 0)])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _build(pkg, kind, m, **kw):

@@ -21,6 +21,7 @@ from zkevm_circuits_tpu.ops import queues as jqueues
 from zkevm_circuits_tpu.ops import sha256 as jsha256
 
 from zkevm_circuits_tpu_torch.ops import blake2s, gf, keccak, queues, sha256
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 BATCH = 64

@@ -13,6 +13,7 @@ from zkevm_circuits_tpu.ops import merkle as jmerkle
 from zkevm_circuits_tpu.ops import ntt as jntt
 from zkevm_circuits_tpu.ops import poseidon2 as jp2
 from zkevm_circuits_tpu.prover import stark as jstark
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 P = (1 << 64) - (1 << 32) + 1
 

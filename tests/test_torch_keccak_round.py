@@ -29,6 +29,7 @@ from zkevm_circuits_tpu_torch.models import keccak256_round_function as kc
 from zkevm_circuits_tpu_torch.utils.convert import (
     keccak_round_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 BLOCKS, READS = 16, 48

@@ -35,6 +35,7 @@ from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     linear_hasher_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 M64 = (1 << 64) - 1

@@ -25,6 +25,7 @@ from zkevm_circuits_tpu_torch.models import log_sorter as ls
 from zkevm_circuits_tpu_torch.utils.convert import (
     log_sorter_witness_from_numpy, residuals_to_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 LIMIT = 8

@@ -20,16 +20,9 @@ from zkevm_circuits_tpu_torch.isa import opcodes as isa
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import logup
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams, prove
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CHALLENGES = [(0x1234567, 0x89ABCDEF), (5, 0), (gf.MODULUS - 1, gf.MODULUS - 2)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u64(x):

@@ -29,6 +29,7 @@ from zkevm_circuits_tpu_torch.base_structures.memory_query import encode_memory_
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.runtime import block, native
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = torch.device("cpu")
 LIMITS = (8, 4, 16, 256)  # unpacker / sha256 rounds, keccak blocks, decommit rows, ram rows

@@ -23,6 +23,7 @@ from zkevm_circuits_tpu.runtime import block2
 
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.runtime import block
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

@@ -6,7 +6,10 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 import zkevm_circuits_tpu_torch
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,6 +70,20 @@ def test_port_modules_import_without_jax():
 def test_rank_helpers_of_the_parallel_tests_import_no_jax():
     """The ranks of the multi-rank tests import tests/torch_parallel_ranks.py."""
     code = "import sys; import torch_parallel_ranks\n" + _FORBIDDEN_CHECK
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_ROOT, os.path.join(_ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+# the test files that the card runs with --noconftest (tests/conftest.py
+# imports JAX); they import tests/torch_test_policy.py, as the gloo ranks do
+GPU_TEST_MODULES = ("test_torch_chain_kernel", "test_torch_kernels", "test_torch_parallel_gpu")
+
+
+@pytest.mark.parametrize("module", GPU_TEST_MODULES)
+def test_gpu_test_modules_import_no_jax(module):
+    code = f"import sys; import {module}\n" + _FORBIDDEN_CHECK
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([_ROOT, os.path.join(_ROOT, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -13,14 +13,7 @@ import torch
 
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 class CompactForms:

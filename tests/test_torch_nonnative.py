@@ -9,6 +9,7 @@ import torch
 from zkevm_circuits_tpu.ops import nonnative as jnn
 
 from zkevm_circuits_tpu_torch.ops import nonnative as nn
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 SECP_P = (1 << 256) - (1 << 32) - 977
 

@@ -15,8 +15,8 @@ test_torch_ram_eval.py, test_torch_storage_validity.py,
 test_torch_keccak_round.py and test_torch_vm_circuit.py; the JAX package's
 own `auto.eval_sharded` and `vm_eval_instances_sharded` take minutes of
 XLA:CPU compiles and are compared in tests/test_torch_parallel_slow.py.
-Each world is started once for the file and joined under
-`torch_parallel_ranks.DEADLINE_S`.
+Each world is started once for the file and joined within
+the time limit of the test that waits on it (tests/torch_test_policy.py).
 """
 
 import numpy as np
@@ -27,6 +27,7 @@ import torch_parallel_ranks as ranks
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.parallel import auto
 from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture(scope="module")

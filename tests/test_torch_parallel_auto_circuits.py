@@ -22,8 +22,8 @@ test_torch_log_path.py, test_torch_eip_4844.py,
 test_torch_storage_application.py, test_torch_sha256_circuits.py and
 test_torch_ecrecover.py; the JAX package's own `auto.eval_sharded` on
 these inputs is compared in tests/test_torch_parallel_slow.py.  Each world
-is started once for the file and joined under
-`torch_parallel_ranks.DEADLINE_S`.
+is started once for the file and joined within
+the time limit of the test that waits on it (tests/torch_test_policy.py).
 """
 
 import importlib
@@ -36,6 +36,7 @@ import torch_parallel_ranks as ranks
 import zkevm_circuits_tpu_torch.models as models
 from zkevm_circuits_tpu_torch.parallel import auto, cases
 from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -10,8 +10,8 @@ verifies.  (The single-device commit and proof are held to the JAX
 package's in tests/test_torch_prover_ops.py and test_torch_ram_prover.py;
 the JAX package's own `sharded_commit_columns` takes minutes of XLA:CPU
 compiles, and is compared in tests/test_torch_parallel_slow.py.)  Each
-world is started once for the file and joined under
-`torch_parallel_ranks.DEADLINE_S`.
+world is started once for the file and joined within
+the time limit of the test that waits on it (tests/torch_test_policy.py).
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ import torch_parallel_ranks as ranks
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import pipeline, stark
 from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 SHAPES = ((8, 8), (5, 9), (3, 10))  # (columns, log2 rows); 5 and 3 split unevenly
 

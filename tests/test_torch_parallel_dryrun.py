@@ -7,13 +7,13 @@ sharded ram check and main_vm all true, the boundary tamper caught, each
 circuit's sharded residuals equal to its unsharded ones, all true, and a
 tamper caught, the sharded commit bit-identical to `_commit_columns`, the
 proof through it verified and equal to the single-device proof on rank 0.
-The world is joined within `torch_parallel_ranks.DEADLINE_S`.  Imports no
-JAX.
+The test waits for the world to end; only its time limit
+(tests/torch_test_policy.py) bounds it.  Imports no JAX.
 """
 
-import torch_parallel_ranks as ranks
 from zkevm_circuits_tpu_torch import entry
 from zkevm_circuits_tpu_torch.parallel import cases
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 SMALL = entry.DryrunSizes(log2_ram_rows=8, log2_ram_limit=5, log2_vm_auto=7, log2_vm_cycles=8,
                           log2_vm_limit=6, log2_prove_rows=6, chain_stride=16, bench_rounds=40,
@@ -24,7 +24,7 @@ PHASES = sorted(["1", "2", "3a", "3b", "4a", "4b"] + [f"3c.{name}" for name in c
 
 
 def test_dryrun_on_two_cpu_ranks():
-    out = entry.dryrun_multichip(2, "cpu", SMALL, deadline_s=ranks.DEADLINE_S)
+    out = entry.dryrun_multichip(2, "cpu", SMALL)
     assert out["mesh"] == {"inst": 2, "rows": 1}
     assert out["proof_equal"] is True
     assert sorted(out["records"]) == PHASES

@@ -10,6 +10,7 @@ sharded-commit proof equal to the single-device proof.  Imports no JAX.
 
 import pytest
 import torch
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.mark.gpu

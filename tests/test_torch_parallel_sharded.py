@@ -9,8 +9,8 @@ sorted value at the first shard's last row, and the chain state before the
 second shard's first row.  A third changes the value of a write no read
 follows, which neither package's sharded check sees (ROADMAP Queue 3).
 Residuals are bools: equal key for key and row for row, with no tolerance.
-Each world is started once for the file and joined under
-`torch_parallel_ranks.DEADLINE_S`.
+Each world is started once for the file and joined within
+the time limit of the test that waits on it (tests/torch_test_policy.py).
 """
 
 import dataclasses
@@ -28,6 +28,7 @@ from zkevm_circuits_tpu.parallel.sharded import sharded_eval_constraints as jax_
 import torch_parallel_ranks as ranks
 from zkevm_circuits_tpu_torch.models import ram_permutation as ram
 from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 N_ROWS, LIMIT = 1 << 10, 1 << 7
 SHARED = ("chain_unsorted", "chain_sorted", "sort_order", "uninit_read_zero", "read_consistency")

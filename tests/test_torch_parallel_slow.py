@@ -44,6 +44,7 @@ from torch_precompile_helpers import to_jax
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.parallel import cases
 from zkevm_circuits_tpu_torch.utils.convert import witness_to_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

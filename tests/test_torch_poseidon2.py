@@ -10,22 +10,13 @@ The CUDA kernel's own tests are in tests/test_torch_kernels.py.
 
 import numpy as np
 import pytest
-import torch
 
 from zkevm_circuits_tpu.ops import gf as jgf
 from zkevm_circuits_tpu.ops import poseidon2 as jp2
 from zkevm_circuits_tpu.utils import poseidon2_ref
 from zkevm_circuits_tpu_torch.ops import gf, poseidon2
 from zkevm_circuits_tpu_torch.runtime import native
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 P = gf.MODULUS

@@ -21,15 +21,17 @@ from zkevm_circuits_tpu.ops import gf2 as jgf2
 from zkevm_circuits_tpu.ops import merkle as jmerkle
 from zkevm_circuits_tpu.ops import ntt as jntt
 from zkevm_circuits_tpu_torch.ops import fri, gf, gf2, merkle, ntt
+from torch_jaxpr_numpy import numpy_jit
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def _jax_side_on_numpy():
+    """The JAX side runs as its jaxprs evaluated with numpy
+    (tests/torch_jaxpr_numpy.py): the file takes a quarter less than on
+    XLA:CPU."""
+    with numpy_jit():
+        yield
 
 
 P = gf.MODULUS

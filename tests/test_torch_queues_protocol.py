@@ -15,6 +15,7 @@ from zkevm_circuits_tpu.utils import protocol as jprotocol
 from zkevm_circuits_tpu_torch.ops import gf, queues
 from zkevm_circuits_tpu_torch.runtime import native
 from zkevm_circuits_tpu_torch.utils import protocol
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 P = gf.MODULUS
 

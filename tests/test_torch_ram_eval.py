@@ -22,6 +22,7 @@ from zkevm_circuits_tpu_torch.models import ram_permutation as ram
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 

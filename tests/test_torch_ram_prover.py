@@ -6,15 +6,14 @@ witness from host tapes, then the grand-product STARK prove + verify
 The same numpy tapes (bench.build_tapes_np) go to both packages.  Tolerance
 exact: witness fields equal as u64, proofs equal as nested python ints, and
 every tampered proof gets the same verdict on both sides.  The JAX side
-proves exactly once (module fixture): a cold JAX proof costs minutes of
-XLA:CPU compiles.
+proves exactly once (module fixture), its jaxprs evaluated with numpy: a cold
+JAX proof costs minutes of XLA:CPU compiles.
 """
 
 import copy
 
 import numpy as np
 import pytest
-import torch
 
 from bench import build_tapes_np
 from zkevm_circuits_tpu.models import ram_permutation as jram
@@ -26,15 +25,17 @@ from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import pipeline
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
 from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints, witness_from_numpy
+from torch_jaxpr_numpy import numpy_jit
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread per xdist worker while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def _jax_side_on_numpy():
+    """The JAX side runs as its jaxprs evaluated with numpy
+    (tests/torch_jaxpr_numpy.py): the file takes a quarter less than on
+    XLA:CPU."""
+    with numpy_jit():
+        yield
 
 
 N_ROWS = 16

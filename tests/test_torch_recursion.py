@@ -30,6 +30,7 @@ from zkevm_circuits_tpu_torch.ops import gf, keccak, queues
 from zkevm_circuits_tpu_torch.prover import pipeline
 from zkevm_circuits_tpu_torch.prover import recursion_proofs as rp
 from zkevm_circuits_tpu_torch.utils import protocol
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 N = 8
 M = 4
@@ -37,14 +38,6 @@ LEAF_CAP = 2
 NODE_VK = (31, 32, 33, 34)
 LEAF_PARAMS = dict(circuit_type=8, basic_circuit_vk_commitment=(11, 12, 13, 14),
                    leaf_vk_commitment=(21, 22, 23, 24))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u64(x):

@@ -31,6 +31,7 @@ from zkevm_circuits_tpu_torch.utils import protocol
 from zkevm_circuits_tpu_torch.utils.convert import compact_forms_from_numpy
 
 from torch_block_helpers import jax_proof, u64 as _u64
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = torch.device("cpu")
 NODE_VK = (31, 32, 33, 34)

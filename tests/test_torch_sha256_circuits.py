@@ -32,6 +32,7 @@ from zkevm_circuits_tpu_torch.utils.convert import (
     code_unpacker_witness_from_numpy, residuals_to_numpy, sha256_round_witness_from_numpy,
     witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 ROUNDS = 12

@@ -16,7 +16,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from zkevm_circuits_tpu.ops import gf as jgf
 from zkevm_circuits_tpu.prover import logup as jlogup
@@ -30,19 +29,12 @@ from zkevm_circuits_tpu_torch.prover import logup, pipeline
 from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
 from zkevm_circuits_tpu_torch.prover import stark
 from zkevm_circuits_tpu_torch.utils.tapes import build_tapes_np
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 GP_PARAMS = stark.StarkParams(log_n=4, log_blowup=2, num_queries=12, cap_log2=1)
 VK_PARAMS = [dict(log_n=3), dict(log_n=16), dict(log_n=4, num_queries=12),
              dict(log_n=4, num_queries=13)]
 CHUNK_LENGTHS = [1, 7, 8, 9, 18, 20, 69]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u64(x):

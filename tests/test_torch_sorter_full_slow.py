@@ -15,7 +15,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from test_torch_ram_prover import _jax_proof_to_ints
 from zkevm_circuits_tpu.base_structures.memory_query import MemoryQueries as JMemoryQueries
@@ -31,19 +30,12 @@ from zkevm_circuits_tpu_torch.prover import logup, pipeline
 from zkevm_circuits_tpu_torch.prover import poseidon2_air as pa
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
 from zkevm_circuits_tpu_torch.utils.convert import proof_from_ints, proof_to_ints
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 
 CHAIN_PARAMS = dict(log_n=3, log_blowup=2, num_queries=8, cap_log2=1)
 GP_PARAMS = dict(log_n=4, log_blowup=2, num_queries=12, cap_log2=1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u64(x):

@@ -32,6 +32,7 @@ from zkevm_circuits_tpu_torch.runtime import block
 from zkevm_circuits_tpu_torch.utils.convert import (
     residuals_to_numpy, storage_validity_witness_from_numpy, witness_to_numpy,
 )
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 CPU = "cpu"
 LIMIT = 32

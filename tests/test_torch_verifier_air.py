@@ -17,7 +17,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from torch_air_helpers import composition_pair, jax_fri_to_ints, u64
 from zkevm_circuits_tpu.ops import fri as jfri
@@ -27,14 +26,7 @@ from zkevm_circuits_tpu.prover import verifier_air as jva
 from zkevm_circuits_tpu_torch.ops import fri, gf
 from zkevm_circuits_tpu_torch.prover import verifier_air as va
 from zkevm_circuits_tpu_torch.utils.convert import fri_proof_from_ints
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 def _jax_child(seed, log_n=3, log_blowup=2, q=4):

@@ -13,19 +13,11 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from zkevm_circuits_tpu_torch.ops import fri, gf, ntt
 from zkevm_circuits_tpu_torch.prover import verifier_air as va
 from zkevm_circuits_tpu_torch.prover.stark import verify
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 def child(seed, log_n=3, log_blowup=2, q=4):

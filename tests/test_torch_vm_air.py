@@ -30,6 +30,7 @@ from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import vm_air
 from zkevm_circuits_tpu_torch.prover.stark import StarkParams
 from zkevm_circuits_tpu_torch.runtime.block import memory_tapes
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 ACCEPTED = ["arith_families", "context_family", "log_storage_and_events",
             "far_call_roundtrip_and_page_reuse"]
@@ -41,14 +42,6 @@ CHALLENGES = [jair._DEBUG_CH,
 
 def _program(name):
     return VM_AIR_PROGRAMS[name] if name in VM_AIR_PROGRAMS else PROGRAMS[name]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

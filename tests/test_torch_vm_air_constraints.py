@@ -20,14 +20,7 @@ from zkevm_circuits_tpu.prover import vm_air as jair
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.prover import vm_air
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.fixture(scope="module")

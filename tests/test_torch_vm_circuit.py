@@ -16,6 +16,7 @@ from zkevm_circuits_tpu.models import vm as jvm
 from torch_vm_programs import PROGRAMS, run_vm
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.utils.convert import residuals_to_numpy, vm_witness_from_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS))

@@ -28,6 +28,7 @@ from zkevm_circuits_tpu_torch.models.vm import circuit, compact
 from zkevm_circuits_tpu_torch.ops import gf
 from zkevm_circuits_tpu_torch.utils import protocol
 from zkevm_circuits_tpu_torch.utils.convert import witness_to_numpy
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 # (program, instance limit): 2 and 4 instances, a far call, a revert with
 # rollbacks; the programs preset registers, which the boot pins reject (as the

@@ -14,6 +14,7 @@ from torch_vm_programs import PROGRAMS, SET_FLAGS, SWAP, enc, isa, run_vm
 from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.models.vm import native_sim, state
 from zkevm_circuits_tpu_torch.runtime import native
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 BENCH_PROGRAM = [
     enc(isa.ADD, src_mode=isa.SRC_IMM, imm0=0xFFFF, src1=0, dst0=1),

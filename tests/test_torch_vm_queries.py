@@ -7,6 +7,7 @@ from zkevm_circuits_tpu.base_structures import decommit_query as jdq, log_query 
 
 from zkevm_circuits_tpu_torch.base_structures import decommit_query as dq, log_query as lq
 from zkevm_circuits_tpu_torch.ops import gf
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 
 def _log_rows(n, seed=11):

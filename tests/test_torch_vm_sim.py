@@ -23,6 +23,7 @@ from zkevm_circuits_tpu_torch.models import vm
 from zkevm_circuits_tpu_torch.models import ecrecover, sha256_round_function as sha_rf
 from zkevm_circuits_tpu_torch.models.vm import sim
 from zkevm_circuits_tpu_torch.ops import secp256k1, sha256
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 TAPES = ("memory_tape", "log_tape", "decommit_tape", "precompile_calls", "precompile_memory",
          "initial_mem_rows", "initial_dec_rows", "boot_code_hash")

@@ -32,6 +32,7 @@ from zkevm_circuits_tpu_torch.prover import verifier_air as va
 from zkevm_circuits_tpu_torch.prover import vm_air
 from zkevm_circuits_tpu_torch.utils.convert import (fri_proof_from_ints, proof_from_ints,
                                                     proof_to_ints)
+from torch_test_policy import policy_per_module, policy_per_test  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

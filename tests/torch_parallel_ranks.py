@@ -34,17 +34,17 @@ from zkevm_circuits_tpu_torch.parallel.sharded import sharded_eval_constraints
 from zkevm_circuits_tpu_torch.prover import pipeline, stark
 from zkevm_circuits_tpu_torch.utils.convert import proof_to_ints
 
+from torch_test_policy import TIME_LIMIT_S
+
 CPU = torch.device("cpu")
 WORLDS = (2, 4)
-# every world is joined within this many seconds, or the test fails
-DEADLINE_S = 120.0
 
 
 def start_worlds(fn, args: tuple, init_dir) -> dict:
     """{world size: future of its ranks' results}: a gloo world of each size
     in WORLDS running fn, all at once, each rank on one thread."""
     pool = ThreadPoolExecutor(len(WORLDS))
-    futures = {d: pool.submit(meshlib.run_world, fn, d, CPU, args, DEADLINE_S, 1, str(init_dir))
+    futures = {d: pool.submit(meshlib.run_world, fn, d, CPU, args, TIME_LIMIT_S, 1, str(init_dir))
                for d in WORLDS}
     pool.shutdown(wait=False)
     return futures
